@@ -1,0 +1,188 @@
+"""``aat_screen`` on PyTorch + CUDA (counterpart of
+``alignment_algos_tpu/cli/screen.py``, FASTA mode).
+
+One query FASTA sequence is screened against every sequence of a library
+FASTA: K1 scores every template on the device, a deterministic top-k
+ranks them, K2 emits the top hits' traceback codes, which are decoded on
+the device, and the hits are UPGMA-clustered on the ali_dist area metric.
+Output is byte-equal to the JAX package's tool.
+
+    python -m alignment_algos_tpu_torch.cli.screen query.fa library.fa
+        [--top_k 10] [--gap_init F] [--gap_extn F] [--SUB_MATRIX file]
+        [--cluster_threshold 8.0] [--ckpt state.npz] [--chunk_size 1024]
+
+``AAT_TORCH_DEVICE`` picks the device (``cuda`` by default, or ``cpu``).
+The profile (``--profiles 1``) and fold-recognition (``--smap 1``) modes
+are not ported yet and exit non-zero.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from alignment_algos_tpu.cli.screen import (PAD_WALL, encode_library,
+                                            padded_table, read_fasta_plain)
+from alignment_algos_tpu.scoring.submatrix import BlosumMatrix
+from alignment_algos_tpu.utils.params import (AliParams, ApplicationParams,
+                                              Argv, RCfile, apply_layers)
+
+from ..utils.torchenv import device_from_env
+
+__all__ = ["PAD_WALL", "ScreenInputs", "main", "read_inputs"]
+
+
+class ScreenInputs(NamedTuple):
+    """The screen's host inputs, pad-wall encoded as the JAX package's
+    ``aat_screen`` encodes them."""
+    query_name: str
+    query_len: int
+    names: list
+    q_codes: np.ndarray      # (Q,) int32
+    t_codes: np.ndarray      # (N, Tmax) int32, padded with pad_code
+    table: np.ndarray        # (A, A) float32 with the pad wall
+    pad_code: int
+
+
+def read_inputs(query_fa: str, library_fa: str,
+                submatrix_fn: str) -> ScreenInputs:
+    """Query FASTA (first record), library FASTA and substitution matrix
+    file -> :class:`ScreenInputs`."""
+    query_name, query_seq = read_fasta_plain(query_fa)[0]
+    library = read_fasta_plain(library_fa)
+    bl = BlosumMatrix(submatrix_fn)
+    table, pad_code = padded_table(bl)
+    index = {c: i for i, c in enumerate(bl.alphabet)}
+    q_codes = np.asarray([index[c] for c in query_seq.upper()], dtype=np.int32)
+    t_codes = encode_library([s for _, s in library], index, pad_code)
+    return ScreenInputs(query_name, len(query_seq), [n for n, _ in library],
+                        q_codes, t_codes, table, pad_code)
+
+
+def main(argv=None) -> int:
+    argv = argv if argv is not None else sys.argv[1:]
+    try:
+        device = device_from_env()
+    except RuntimeError as e:
+        print(e, file=sys.stderr)
+        return -1
+    try:
+        return _run(argv, device)
+    except (ValueError, OSError) as e:
+        print(e, file=sys.stderr)
+        return -1
+
+
+def _run(argv, device: torch.device) -> int:
+    args = Argv(argv)
+    if args.dohelp or args.count() < 2:
+        print("Usage: aat_screen query.fa library.fa [--top_k N "
+              "--gap_init F --gap_extn F --SUB_MATRIX file "
+              "--cluster_threshold F --ckpt file --chunk_size N]",
+              file=sys.stderr)
+        return 0
+
+    ali_params = AliParams()
+    app_params = ApplicationParams()
+    rc = RCfile()
+    topfile = ""
+    if args.get_switch("-top", erase=False):
+        topfile = args.get_switch_arg("-top", 1)
+    top = RCfile(topfile) if topfile else None
+    apply_layers([ali_params, app_params], rc, top, args)
+
+    k = args.get_int("top_k", 10)
+    gi = args.get_float("gap_init", ali_params.gap_init_penalty)
+    ge = args.get_float("gap_extn", ali_params.gap_extn_penalty)
+    thresh = args.get_float("cluster_threshold", 8.0)
+    ckpt = args.get_str("ckpt", "")
+    chunk = args.get_int("chunk_size", 1024)
+    for mode in ("profiles", "smap"):
+        if args.get_int(mode, 0) == 1:
+            print(f"--{mode} 1 is not ported to the PyTorch package yet "
+                  "(ROADMAP.md queue A, slice 2: exact profile screens); "
+                  "run alignment_algos_tpu.cli.screen", file=sys.stderr)
+            return 2
+
+    if not ali_params.submatrix_fn:
+        raise ValueError("no substitution matrix: pass --SUB_MATRIX <file> "
+                         "or set SUB_MATRIX in ~/.hmaprc / -top file")
+
+    inp = read_inputs(args.get_arg(0), args.get_arg(1),
+                      ali_params.submatrix_fn)
+    q_codes, t_codes, table = inp.q_codes, inp.t_codes, inp.table
+
+    if ckpt:
+        from ..parallel.checkpoint import screen_library_checkpointed
+        scores, idx, done = screen_library_checkpointed(
+            q_codes, t_codes, table, gi, ge, k=k, chunk_size=chunk,
+            ckpt_path=ckpt, device=device)
+        if not done:
+            print("screen incomplete (resume with the same command)",
+                  file=sys.stderr)
+    else:
+        from ..parallel.screen import screen_library
+        scores, idx = screen_library(q_codes, t_codes, table, gi, ge, k=k,
+                                     device=device)
+
+    names = inp.names
+    print(f"# query: {inp.query_name} ({inp.query_len} aa) vs "
+          f"{len(names)} templates; top {len(idx)}")
+    print("# rank\tscore\tindex\tname")
+    for r, (s, i) in enumerate(zip(scores, idx), start=1):
+        print(f"{r}\t{s:g}\t{int(i)}\t{names[int(i)]}")
+
+    if len(idx) >= 2:
+        _cluster_hits(q_codes, t_codes, table, gi, ge, idx, names, thresh,
+                      inp.pad_code, device)
+    return 0
+
+
+def _cluster_hits(q_codes, t_codes, table, gi, ge, idx, names,
+                  thresh: float, pad_code: int,
+                  device: torch.device) -> None:
+    """Cluster the top hits by the reference alignment-distance metric.
+
+    Every hit's optimal local alignment against the query comes from one
+    K2 launch, decoded on the device; each alignment is a polyline over the
+    shared query axis, and the hit-hit distance is Ali_Dist's exact area
+    between two polylines divided by the query length
+    (ali_dist.cpp:160-414,633-638)."""
+    from alignment_algos_tpu.analysis.ali_dist import ResPair, area_matrix
+    from alignment_algos_tpu.analysis.upgma import UPGMAClusterer
+
+    from ..ops import swaffine
+
+    hits = t_codes[np.asarray(idx, dtype=np.int64)]
+    n = len(hits)
+    qlen = q_codes.shape[0]
+    tlens = (hits != pad_code).sum(axis=1)
+    qb = np.broadcast_to(q_codes, (n, qlen))
+    _, paths = swaffine.sw_affine_tb_batch(qb, hits, table, gi, ge,
+                                           device=device)
+
+    # polylines in Ali_Dist's (t, q) convention with the QUERY as the
+    # shared t axis, 1-based and sentinel-anchored at both ends exactly as
+    # strings_to_vrp renders the '^'/'$' matches
+    vrps = [
+        [ResPair(0, 0)]
+        + [ResPair(qi + 1, ti + 1) for qi, ti in p]
+        + [ResPair(qlen + 1, int(tlens[b]) + 1)]
+        for b, p in enumerate(paths)
+    ]
+    dist = np.asarray(area_matrix(vrps), dtype=np.float64) / float(qlen)
+
+    clusterer = UPGMAClusterer(dist)
+    clusterer.cluster()
+    clusters = clusterer.find_clusters_under_threshold(thresh)
+    print(f"# clusters (UPGMA cut at {thresh:g}): {len(clusters)}")
+    for ci, members in enumerate(clusters, start=1):
+        label = ", ".join(names[int(idx[m])] for m in members)
+        print(f"cluster {ci}: {label}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

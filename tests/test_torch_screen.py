@@ -1,0 +1,167 @@
+"""The port's library screen, checkpointed screen and ``aat_screen`` CLI
+against the JAX package: equal indices and scores (ties included), and
+byte-equal CLI output on the tests/test_screen_cli.py fixture recipe."""
+
+import io
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from alignment_algos_tpu.parallel import screen as jscreen
+from alignment_algos_tpu_torch.parallel import screen
+from alignment_algos_tpu_torch.parallel.checkpoint import (
+    screen_library_checkpointed)
+
+CPU = torch.device("cpu")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOSUM = os.path.join(ROOT, "tests", "data", "BLOSUM62")
+AA = "ARNDCQEGHILKMFPSTWYV"
+
+
+@pytest.fixture(scope="module")
+def library():
+    """A pad-walled library with duplicate templates (score ties)."""
+    rng = np.random.default_rng(0)
+    q = rng.integers(0, 20, 48).astype(np.int32)
+    lib = rng.integers(0, 20, (37, 56)).astype(np.int32)
+    for r, n in enumerate(rng.integers(20, 56, 37)):
+        lib[r, n:] = 20
+    lib = np.concatenate([lib[:5], lib[:5], lib[5:]], axis=0)
+    table = np.full((21, 21), -1.0e4, np.float32)
+    table[:20, :20] = rng.integers(-4, 11, (20, 20))
+    return q, lib, table
+
+
+@pytest.mark.parametrize("k", [12, 42])                # 42: every template
+@pytest.mark.parametrize("gi,ge", [(11.0, 1.0), (4.73, 0.34)])
+def test_screen_library_equals_jax(library, gi, ge, k):
+    q, lib, table = library
+    s, i = screen.screen_library(q, lib, table, gi, ge, k=k, device=CPU)
+    assert s.dtype == np.float32 and i.dtype == np.int32 and len(i) == k
+    s_mesh, i_mesh = jscreen.screen_library(
+        q, lib, table, gi, ge, k=k, mesh=jscreen.default_mesh(8))
+    s_host, i_host = jscreen.screen_library_host(q, lib, table, gi, ge, k=k)
+    for js, ji in ((s_mesh, i_mesh), (s_host, i_host)):
+        np.testing.assert_array_equal(i, ji)
+        np.testing.assert_array_equal(s, js)
+    if k == len(lib):   # the duplicated templates tie; lower index first
+        pos = {int(x): n for n, x in enumerate(i)}
+        for r in range(5):
+            assert pos[r] < pos[r + 5] and s[pos[r]] == s[pos[r + 5]]
+    s_ref, i_ref = screen.screen_library_host(q, lib, table, gi, ge, k=k)
+    np.testing.assert_array_equal(i_ref, i)
+    np.testing.assert_array_equal(s_ref, s)
+
+
+def test_checkpointed_screen_resumes_to_direct(library, tmp_path):
+    q, lib, table = library
+    ck = str(tmp_path / "state.npz")
+    s, i, done = screen_library_checkpointed(
+        q, lib, table, 4.73, 0.34, k=9, chunk_size=8, ckpt_path=ck,
+        max_chunks=2, device=CPU)
+    assert not done
+    s, i, done = screen_library_checkpointed(
+        q, lib, table, 4.73, 0.34, k=9, chunk_size=8, ckpt_path=ck,
+        device=CPU)
+    assert done
+    s_ref, i_ref = screen.screen_library(q, lib, table, 4.73, 0.34, k=9,
+                                         device=CPU)
+    np.testing.assert_array_equal(i, i_ref)
+    np.testing.assert_array_equal(s, s_ref)
+    with pytest.raises(ValueError):
+        screen_library_checkpointed(q, lib, table, 4.73, 0.34, k=5,
+                                    chunk_size=8, ckpt_path=ck, device=CPU)
+
+
+@pytest.fixture(scope="module")
+def fastas(tmp_path_factory):
+    """The tests/test_screen_cli.py fixture recipe."""
+    rng = np.random.default_rng(7)
+    d = tmp_path_factory.mktemp("torch_screen")
+
+    def rseq(n):
+        return "".join(AA[i] for i in rng.integers(0, 20, n))
+
+    q = rseq(80)
+    qfa = d / "query.fa"
+    qfa.write_text(f">query1\n{q}\n")
+    lfa = d / "lib.fa"
+    lines = []
+    for i in range(30):
+        n = int(rng.integers(50, 120))
+        s = rseq(n)
+        if i % 5 == 0 and n > 60:
+            s = s[:10] + q[10:60] + s[60:]
+        lines.append(f">tmpl_{i:02d}\n{s}\n")
+    lfa.write_text("".join(lines))
+    return str(qfa), str(lfa)
+
+
+def _capture(main, argv):
+    out, err = io.StringIO(), io.StringIO()
+    old = sys.stdout, sys.stderr
+    sys.stdout, sys.stderr = out, err
+    try:
+        rc = main(argv)
+    finally:
+        sys.stdout, sys.stderr = old
+    return rc, out.getvalue(), err.getvalue()
+
+
+@pytest.mark.parametrize("extra", [
+    [],                                         # default gaps 4.73 / 0.34
+    ["--gap_init", "11", "--gap_extn", "1"],
+    ["--top_k", "8"],
+    ["--top_k", "5", "--ckpt", "CKPT", "--chunk_size", "7"],
+], ids=["default", "gaps_11_1", "top_k_8", "ckpt"])
+def test_cli_stdout_byte_equal_to_jax(fastas, extra, tmp_path, monkeypatch):
+    from alignment_algos_tpu.cli import screen as jcli
+    from alignment_algos_tpu_torch.cli import screen as tcli
+    monkeypatch.setenv("AAT_TORCH_DEVICE", "cpu")
+    argv = [*fastas, "--SUB_MATRIX", BLOSUM, *extra]
+    outs = []
+    for name, main in (("jax", jcli.main), ("torch", tcli.main)):
+        args = [str(tmp_path / f"{name}.npz") if a == "CKPT" else a
+                for a in argv]
+        rc, out, err = _capture(main, args)
+        assert rc == 0, err
+        outs.append(out)
+    assert outs[0] == outs[1]
+    assert "cluster 1:" in outs[1]
+
+
+def test_cli_subprocess_never_imports_jax(fastas):
+    code = ("import sys\n"
+            "from alignment_algos_tpu_torch.cli.screen import main\n"
+            f"rc = main({[*fastas, '--SUB_MATRIX', BLOSUM]!r})\n"
+            "print('JAX_IMPORTED', 'jax' in sys.modules)\n"
+            "sys.exit(rc)\n")
+    env = dict(os.environ, AAT_TORCH_DEVICE="cpu",
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT, os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "# rank\tscore\tindex\tname" in proc.stdout
+    assert proc.stdout.strip().endswith("JAX_IMPORTED False")
+
+
+@pytest.mark.parametrize("mode", ["--profiles", "--smap"])
+def test_cli_unported_modes_fail_loudly(fastas, mode, monkeypatch):
+    from alignment_algos_tpu_torch.cli import screen as tcli
+    monkeypatch.setenv("AAT_TORCH_DEVICE", "cpu")
+    rc, out, err = _capture(tcli.main, [*fastas, mode, "1"])
+    assert rc != 0 and out == ""
+    assert "ROADMAP" in err and "slice 2" in err
+
+
+def test_cli_refuses_cuda_without_a_card(fastas, monkeypatch):
+    from alignment_algos_tpu_torch.cli import screen as tcli
+    monkeypatch.setenv("AAT_TORCH_DEVICE", "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc, out, err = _capture(tcli.main, [*fastas, "--SUB_MATRIX", BLOSUM])
+    assert rc != 0 and out == "" and "AAT_TORCH_DEVICE" in err
