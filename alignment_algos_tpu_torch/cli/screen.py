@@ -1,19 +1,28 @@
 """``aat_screen`` on PyTorch + CUDA (counterpart of
-``alignment_algos_tpu/cli/screen.py``, FASTA mode).
+``alignment_algos_tpu/cli/screen.py``).
 
-One query FASTA sequence is screened against every sequence of a library
-FASTA: K1 scores every template on the device, a deterministic top-k
-ranks them, K2 emits the top hits' traceback codes, which are decoded on
-the device, and the hits are UPGMA-clustered on the ali_dist area metric.
-Output is byte-equal to the JAX package's tool.
+FASTA mode: one query FASTA sequence is screened against every sequence of
+a library FASTA: K1 scores every template on the device, a deterministic
+top-k ranks them, K2 emits the top hits' traceback codes, which are
+decoded on the device, and the hits are UPGMA-clustered on the ali_dist
+area metric.
+
+``--profiles 1``: a query ``.prof`` against a directory (or list file) of
+``.prof`` templates, scored with the exact HMAP evaluator: K5 and K6 build
+the similarity on the device, K3 runs the general-gap DP.  ``--smap 1``:
+fold recognition over SMAP structure templates with ``Gn2Eval``, costs
+built on the host, K3 on the device.  Output is byte-equal to the JAX
+package's tool in every mode.
 
     python -m alignment_algos_tpu_torch.cli.screen query.fa library.fa
         [--top_k 10] [--gap_init F] [--gap_extn F] [--SUB_MATRIX file]
         [--cluster_threshold 8.0] [--ckpt state.npz] [--chunk_size 1024]
+    python -m alignment_algos_tpu_torch.cli.screen query.prof templates/
+        --profiles 1 [--top_k 10] [--KEY value ...]
+    python -m alignment_algos_tpu_torch.cli.screen query.prof smaps.txt
+        --smap 1 [--top_k 10] [--KEY value ...]
 
 ``AAT_TORCH_DEVICE`` picks the device (``cuda`` by default, or ``cpu``).
-The profile (``--profiles 1``) and fold-recognition (``--smap 1``) modes
-are not ported yet and exit non-zero.
 """
 
 from __future__ import annotations
@@ -32,7 +41,8 @@ from alignment_algos_tpu.utils.params import (AliParams, ApplicationParams,
 
 from ..utils.torchenv import device_from_env
 
-__all__ = ["PAD_WALL", "ScreenInputs", "main", "read_inputs"]
+__all__ = ["PAD_WALL", "ScreenInputs", "main", "read_inputs",
+           "read_profiles"]
 
 
 class ScreenInputs(NamedTuple):
@@ -100,12 +110,10 @@ def _run(argv, device: torch.device) -> int:
     thresh = args.get_float("cluster_threshold", 8.0)
     ckpt = args.get_str("ckpt", "")
     chunk = args.get_int("chunk_size", 1024)
-    for mode in ("profiles", "smap"):
-        if args.get_int(mode, 0) == 1:
-            print(f"--{mode} 1 is not ported to the PyTorch package yet "
-                  "(ROADMAP.md queue A, slice 2: exact profile screens); "
-                  "run alignment_algos_tpu.cli.screen", file=sys.stderr)
-            return 2
+    if args.get_int("profiles", 0) == 1:
+        return _run_profiles(args, k, rc, top, device)  # needs no submatrix
+    if args.get_int("smap", 0) == 1:
+        return _run_profiles(args, k, rc, top, device, smap=True)
 
     if not ali_params.submatrix_fn:
         raise ValueError("no substitution matrix: pass --SUB_MATRIX <file> "
@@ -138,6 +146,65 @@ def _run(argv, device: torch.device) -> int:
     if len(idx) >= 2:
         _cluster_hits(q_codes, t_codes, table, gi, ge, idx, names, thresh,
                       inp.pad_code, device)
+    return 0
+
+
+def read_profiles(query_fn: str, lib_arg: str, smap: bool = False):
+    """The query profile and the template profiles of a directory of
+    ``.prof`` files (sorted) or of a list file, one path per line.
+
+    Returns (query ``HMAPSequence``, templates, file names); the templates
+    are ``SMAPSequence`` (gn2) when ``smap``, else ``HMAPSequence``."""
+    import glob
+    import os
+
+    from alignment_algos_tpu.seq.hmap import HMAPSequence
+
+    query = HMAPSequence.from_file(query_fn)
+    if os.path.isdir(lib_arg):
+        files = sorted(glob.glob(os.path.join(lib_arg, "*.prof")))
+    else:
+        with open(lib_arg) as f:
+            files = [line.strip() for line in f if line.strip()]
+    if not files:
+        raise ValueError(f"no template profiles found in {lib_arg}")
+    if smap:
+        from alignment_algos_tpu.structure.smap import SMAPSequence
+        templates = [SMAPSequence.from_file(fn, gn2=True) for fn in files]
+    else:
+        templates = [HMAPSequence.from_file(fn) for fn in files]
+    return query, templates, files
+
+
+def _run_profiles(args, k: int, rc, top, device: torch.device,
+                  smap: bool = False) -> int:
+    """``--profiles 1`` (exact HMAP profile-profile screen) and ``--smap
+    1`` (Gn2Eval fold recognition over SMAP templates), on one device."""
+    from ..parallel.screen import screen_profiles
+
+    query, templates, files = read_profiles(args.get_arg(0), args.get_arg(1),
+                                            smap=smap)
+    if smap:
+        from alignment_algos_tpu.scoring.gn2_eval import Gn2Eval, Gn2Params
+        params = Gn2Params()
+        apply_layers([params], rc, top, args)
+        factory = lambda q, t: Gn2Eval(params)
+        kind = "SMAP structure"
+    else:
+        from alignment_algos_tpu.scoring.hmap_eval import (HMAPaliEval,
+                                                           HMAPaliParams)
+        params = HMAPaliParams()
+        apply_layers([params], rc, top, args)
+        factory = lambda q, t: HMAPaliEval(params)
+        kind = "template"
+
+    scores, order = screen_profiles(query, templates, factory, k=k,
+                                    device=device)
+    print(f"# query profile vs {len(templates)} {kind} profiles; "
+          f"top {len(order)}")
+    print("# rank\tscore\tindex\tfile")
+    for r, i in enumerate(order, start=1):
+        print(f"{r}\t{scores[int(i)]:g}\t{int(i)}\t{files[int(i)]}")
     return 0
 
 

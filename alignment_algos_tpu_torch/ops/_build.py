@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (counterpart of
 ``alignment_algos_tpu/native/__init__.py::build_native``).
 
-``ops/csrc/*.cu`` compile at first use with ``nvcc`` into one shared
-library with a plain C interface, loaded with ``ctypes``.  No PyTorch
-headers are included, so a build takes seconds, not minutes.  The output
+``ops/csrc/*.cu`` compile at first use with ``nvcc``, one process per
+source started together, and link into one shared library with a plain C
+interface, loaded with ``ctypes``.  No PyTorch headers are included, so a
+build takes seconds, not minutes.  The output
 lands in ``build/`` at the root of the checkout under a name hashed from
 the source bytes and the flags, so an edit can never pick up a stale
 library (the lesson ``build_native`` records).  The build is atomic
@@ -27,17 +28,22 @@ CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # argtypes of every C entry point in csrc/ (pointers and the stream as
 # c_void_p: a bare Python int would be cut to 32 bits)
 SIGNATURES = {
     "sw_scores_launch": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
     "sw_tb_launch": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                      _P),
+    "dp_general_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _P),
+    "hmap_sim_launch": (_P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I,
+                        _P),
+    "hmap_znorm_launch": (_P, _P, _P, _F, _I, _I, _I, _I, _P),
 }
 
 
@@ -78,13 +84,29 @@ def load() -> Built:
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.tmp.{os.getpid()}"
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                              capture_output=True, text=True)
+        objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        bad = [s for s, p in zip(srcs, procs) if p.returncode != 0]
+        if not bad:
+            link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                                   tmp, *objs],
+                                  capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            if link.returncode != 0:
+                bad = ["link"]
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        if bad:
+            raise RuntimeError(f"nvcc failed ({', '.join(bad)}):\n{log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
     for name, argtypes in SIGNATURES.items():

@@ -1,10 +1,12 @@
-"""Library screen on one device (counterpart of
-``alignment_algos_tpu/parallel/screen.py``'s ``screen_library`` path).
+"""Library and profile screens on one device (counterpart of
+``alignment_algos_tpu/parallel/screen.py``'s ``screen_library`` and
+``screen_profiles``).
 
 One query against a template library: K1 scores every template, then a
 deterministic top-k ranks them (score descending, library index ascending,
-as the JAX package's ``jax.lax.top_k`` does).  The mesh, grid and profile
-screens of the JAX module belong to later slices of the port.
+as the JAX package's ``jax.lax.top_k`` does).  The exact profile screen
+scores with the reference evaluators through K3 (``ops/dp_scores``).  The
+mesh and grid screens of the JAX module belong to a later slice.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from ..ops import swaffine
 from ..ops.swaffine import to_device  # counterpart of the JAX ``_put``
 from ..utils.torchenv import device_from_env
 
-__all__ = ["screen_library", "screen_library_host", "to_device"]
+__all__ = ["screen_library", "screen_library_host", "screen_profiles",
+           "to_device"]
 
 
 def _screen_step(q_codes: torch.Tensor, t_codes: torch.Tensor,
@@ -60,3 +63,45 @@ def screen_library_host(q_codes, t_codes, table, gi, ge, k=10, *,
     order = np.lexsort((np.arange(len(scores)), -scores))
     top = order[:k]
     return scores[top], top
+
+
+def screen_profiles(query, templates, evaluator_factory, k: int = 10, *,
+                    device: torch.device):
+    """Exact-scoring profile screen: one query profile against a list of
+    template profiles, scores bit-equal to per-pair reference DP builds.
+
+    ``HMAPaliEval`` and ``Hmap2Eval`` evaluators whose ``build_costs`` is
+    not overridden build the similarity on ``device``
+    (``hmap_device.screen_hmap_device``); every other evaluator (e.g.
+    ``Gn2Eval``) builds its costs on the host, and each (q2, t2) bucket is
+    scored by K3 (``dp_scores.forward_scores_batch``).
+
+    evaluator_factory(query, templ) -> evaluator with build_costs().
+    Returns (scores float32 (N,), top-k indices, score descending then index
+    ascending)."""
+    from alignment_algos_tpu.scoring.hmap2_eval import Hmap2Eval
+    from alignment_algos_tpu.scoring.hmap_eval import HMAPaliEval
+
+    from ..ops import dp_scores, hmap_device
+
+    device = torch.device(device)
+    if templates:
+        ev0 = evaluator_factory(query, templates[0])
+        if isinstance(ev0, HMAPaliEval) and type(ev0).build_costs in (
+                HMAPaliEval.build_costs, Hmap2Eval.build_costs):
+            return hmap_device.screen_hmap_device(
+                query, templates, ev0.params, k=k, ev=ev0, device=device)
+
+    buckets: dict[tuple[int, int], list[int]] = {}
+    costs = [None] * len(templates)
+    for idx, templ in enumerate(templates):
+        c = evaluator_factory(query, templ).build_costs(query, templ)
+        costs[idx] = c
+        buckets.setdefault((c.q_size, c.t_size), []).append(idx)
+
+    scores = np.zeros(len(templates), dtype=np.float32)
+    for idxs in buckets.values():
+        scores[idxs] = dp_scores.forward_scores_batch(
+            [costs[i] for i in idxs], device=device)
+    order = np.lexsort((np.arange(len(scores)), -scores))[:k]
+    return scores, order

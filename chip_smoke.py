@@ -12,17 +12,34 @@
    numpy Gotoh oracle on 2 lanes, and ``screen_library``'s top-k through K1
    against ``screen_library_host`` (plain version on the card, ranked by
    ``np.lexsort``).
-4. Drives the main path, ``aat_screen`` (the port's ``cli/screen.py``), at a
-   deployment's size: one 512-residue query against 5120 templates of
-   64-512 residues padded to 512 with the pad wall (1.34e9 cells per
-   screen), generated from a seed with 8 planted homologs.  A small run of
-   the same CLI first builds the host code's native libraries, outside the
-   timed runs and the launch counts.  Runs (a) default
-   gaps, (b) --gap_init 11 --gap_extn 1, (c) (a) with --ckpt and
-   --chunk_size 1024; checks the homologs rank 1-8 and share a cluster,
+4. Drives the FASTA main path, ``aat_screen`` (the port's
+   ``cli/screen.py``), at a deployment's size: one 512-residue query
+   against 5120 templates of 64-512 residues padded to 512 with the pad
+   wall (1.34e9 cells per screen), generated from a seed with 8 planted
+   homologs.  A small run of the same CLI first builds the host code's
+   native libraries, outside the timed runs and the launch counts.  Runs
+   (a) default gaps, (b) --gap_init 11 --gap_extn 1, (c) (a) with --ckpt
+   and --chunk_size 1024; checks the homologs rank 1-8 and share a cluster,
    (c) equals (a), both kernels launched in every run, and JAX never
    imported.
-5. Prints the kernels' JSON line, the card line, and as the last line
+5. The exact profile path.  Fails unless the host libm ``expf`` loaded
+   (the shared host code would silently use ``np.exp``).  Generates one
+   256-residue query profile and 1024 template profiles of 128-384
+   residues from the seed, 8 of them planted homologs (the query's residues
+   20-236 with 30% of their rows redrawn, between random flanks).  Holds
+   K3 (scores and full-H modes, global and local, HMAP vec_d tables and
+   full-D tables with a C term, odd shapes and full-size buckets) against
+   its plain version and against the numpy ``dp_ref`` engine on 2 pairs,
+   K5 and K6 against theirs on 2 buckets, and K5 + K6 against the host
+   ``HMAPaliEval.build_costs`` S for 16 templates, all with tolerance 0.
+   Then ``aat_screen --profiles 1`` over the 1024 templates (the homologs
+   must rank 1-8; K3, K5 and K6 must launch), the same CLI on the first 64
+   templates on the card and with ``AAT_TORCH_DEVICE=cpu`` (byte-equal
+   stdout), and ``--smap 1`` on the repository's SMAP fixtures on the card
+   and on the CPU (byte-equal stdout).  Times K3 on a full bucket and on a
+   64-pair 258 x 258 batch, and K5 + K6 on a full bucket, each against its
+   plain version.
+6. Prints the kernels' JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the run with a non-zero exit code.
@@ -47,6 +64,11 @@ N_HOMOLOGS, TOP_K, CHUNK = 8, 10, 1024
 GAPS = [(4.73, 0.34), (11.0, 1.0)]
 AA = "ARNDCQEGHILKMFPSTWYV"
 K1_SRC = K2_SRC = "alignment_algos_tpu_torch/ops/csrc/sw_gotoh.cu"
+K3_SRC = "alignment_algos_tpu_torch/ops/csrc/dp_general.cu"
+K56_SRC = "alignment_algos_tpu_torch/ops/csrc/hmap_device.cu"
+# the exact profile screen
+Q_PROF, N_PROF, TP_MIN, TP_MAX = 256, 1024, 128, 384
+HOM_CORE, HOM_REDRAW, N_SAME = (20, 237), 0.3, 64
 
 
 def log(*a):
@@ -222,6 +244,292 @@ def rows_of(out: str):
     return [l.split("\t") for l in out.splitlines()
             if l and not l.startswith("#") and "\t" in l]
 
+# ------------------------------------------------- the exact profile screen
+
+def _residues(rng, n: int):
+    """n residues drawn with tools/make_profiles.make_profile's recipe (a
+    copy, vectorized): (one-letter code, profile, gap line, SSE line)."""
+    states = []
+    while len(states) < n:
+        states.extend([int(rng.integers(0, 3))] * int(rng.integers(3, 9)))
+    states = np.asarray(states[:n])
+    rows = np.arange(n)
+    olc = rng.integers(0, 20, n)
+    prof = rng.dirichlet(np.full(20, 0.3), size=n) * 100.0 * 0.4
+    prof[rows, olc] += 60.0
+    gap = np.column_stack([rng.uniform(2.0, 6.0, n), rng.uniform(0.1, 0.6, n),
+                           rng.uniform(0.0, 1.0, (n, 2))])
+    base = rng.dirichlet(np.ones(3), size=n) * 0.3
+    base[rows, states] += 0.7
+    base /= base.sum(axis=1, keepdims=True)
+    sse = np.column_stack([base, rng.uniform(0.3, 0.99, n),
+                           rng.uniform(0.0, 1.0, (n, 2))])
+    return [(AA[o], " ".join(["%.2f"] * 20) % tuple(p),
+             "%.3f %.3f 0.000 0.000 %.3f %.3f" % tuple(g),
+             " ".join(["%.3f"] * 6) % tuple(e))
+            for o, p, g, e in zip(olc, prof, gap, sse)]
+
+
+def _profile_text(name: str, rows) -> str:
+    lines = [f"ID : {name}", "DE : synthetic", "SR : none", "EVD: 20 6",
+             f"LEN: {len(rows)}"]
+    for i, (olc, prof, gap, sse) in enumerate(rows, start=1):
+        lines += [f"{i:4d} {olc} {prof}", f"   -   {gap}", f"   *   {sse}"]
+    return "\n".join(lines + ["//"]) + "\n"
+
+
+def make_profile_library(d: str, n_lib: int = N_PROF, q_len: int = Q_PROF,
+                         t_min: int = TP_MIN, t_max: int = TP_MAX):
+    """Query profile + a directory of template profiles from SEED; returns
+    (query path, library dir, file names in library order, homolog files).
+
+    Each homolog is the query's residues 20-236 with 30% of those rows
+    redrawn, between random flanks of 5-40 residues."""
+    rng = np.random.default_rng(SEED)
+    qrows = _residues(rng, q_len)
+    qfn, lib = os.path.join(d, "query.prof"), os.path.join(d, "lib")
+    os.makedirs(lib)
+    with open(qfn, "w") as f:
+        f.write(_profile_text("query", qrows))
+    slots = set(rng.choice(n_lib, N_HOMOLOGS, replace=False).tolist())
+    files, homologs = [], []
+    for n in range(n_lib):
+        if n in slots:
+            core = list(qrows[HOM_CORE[0]:HOM_CORE[1]])
+            redraw = rng.choice(len(core), int(len(core) * HOM_REDRAW),
+                                replace=False)
+            for r, row in zip(redraw, _residues(rng, len(redraw))):
+                core[r] = row
+            rows = (_residues(rng, int(rng.integers(5, 41))) + core
+                    + _residues(rng, int(rng.integers(5, 41))))
+        else:
+            rows = _residues(rng, int(rng.integers(t_min, t_max + 1)))
+        fn = os.path.join(lib, f"t{n:04d}.prof")
+        with open(fn, "w") as f:
+            f.write(_profile_text(f"t{n:04d}", rows))
+        files.append(fn)
+        if n in slots:
+            homologs.append(fn)
+    return qfn, lib, files, homologs
+
+
+def same(a, b) -> bool:
+    """Tolerance 0: equal values, NaN at the same places."""
+    import torch
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return (a.shape == b.shape and torch.equal(na, nb)
+            and torch.equal(torch.where(na, 0.0, a), torch.where(nb, 0.0, b)))
+
+
+def random_dp_tables(ds, rng, n, q2, t2, dev, *, vec_d: bool):
+    """K3 inputs from random data: HMAP-style gap vectors rebuilt into D on
+    the device (SEMI_LOCAL: zeroed overhangs and ins_zero flags), or a
+    Gn2-style full D with a C term."""
+    import torch
+    S = (rng.standard_normal((n, q2, t2)) * 2.0).astype(np.float32)
+    S[:, [0, -1], :] = 0.0
+    S[:, :, [0, -1]] = 0.0
+    gi = rng.uniform(0.5, 5.0, (n, t2)).astype(np.float32)
+    ge = rng.uniform(0.05, 1.0, (n, t2)).astype(np.float32)
+    D = (np.stack([gi, ge], axis=1) if vec_d else
+         rng.uniform(0.0, 9.0, (n, t2, t2)).astype(np.float32))
+    A = np.minimum(gi, np.roll(gi, 1, axis=1))
+    B = np.minimum(ge, np.roll(ge, 1, axis=1))
+    C = rng.normal(0.0, 1.0, (n, t2)).astype(np.float32)
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+         for x in (S, D, A, B, C)]
+    return ds.prepare_tables(*t, zero_head=vec_d, zero_tail=vec_d, off=2,
+                             has_c=not vec_d, vec_d=vec_d, del_free=vec_d)
+
+
+def check_profile_kernels(dev, qfn, lib_dir, homologs, cli):
+    """Phase 5's kernel checks, all with tolerance 0; returns per-kernel
+    (max_abs_err, ms, plain_ms) and extra timings."""
+    import torch
+    from alignment_algos_tpu_torch.ops import dp_pallas as dpp
+    from alignment_algos_tpu_torch.ops import dp_scores as ds
+    from alignment_algos_tpu_torch.ops import hmap_device as hd
+
+    err = {"k3": 0.0, "k5": 0.0, "k6": 0.0}
+    rng = np.random.default_rng(SEED + 2)
+
+    def k3_vs_plain(tabs, tag):
+        for local in (False, True):
+            for full_h in (False, True):
+                got = ds.dp_general(*tabs, local=local, full_h=full_h)
+                want = ds.dp_general_plain(*tabs, local=local, full_h=full_h)
+                torch.cuda.synchronize()
+                assert same(got, want), f"K3 != plain: {tag} local={local} " \
+                    f"full_h={full_h}"
+                err["k3"] = max(err["k3"], max_abs(got, want))
+
+    # (2, 802, 770): past the TPU kernels' VMEM cap; the port has no cliff
+    for n, q2, t2 in ((1, 3, 3), (3, 9, 7), (9, 13, 21), (1, 40, 33),
+                      (3, 31, 60), (2, 802, 770)):
+        for vec_d in (True, False):
+            k3_vs_plain(random_dp_tables(ds, rng, n, q2, t2, dev,
+                                         vec_d=vec_d),
+                        f"random {'vec_d' if vec_d else 'full D + C'} "
+                        f"{n}x{q2}x{t2}")
+    log("K3 equals plain on odd shapes (n = 1, 3, 9) and at 2 x 802 x 770, "
+        "vec_d and full D + C, global and local, scores and full H")
+
+    query, templates, files = cli.read_profiles(qfn, lib_dir)
+    params = hd.HMAPaliParams()
+    ev = hd.HMAPaliEval(params)
+    library = hd.DeviceLibrary(templates, ev, device=dev)
+    qt = hd.query_tensors(query, dev)
+    # full-size buckets: the fullest near 258, the longest, the fullest
+    near = min(library.buckets, key=lambda t2: (abs(t2 - 258),
+                                                -len(library.buckets[t2]
+                                                     ["idx"])))
+    longest = max(library.buckets)
+    fullest = max(library.buckets, key=lambda t2: len(library.buckets[t2]
+                                                      ["idx"]))
+    for t2 in dict.fromkeys((near, longest, fullest)):
+        b = library.buckets[t2]
+        k3_vs_plain(hd.bucket_tables(qt, b, params),
+                    f"HMAP bucket {len(b['idx'])}x{query.size()}x{t2}")
+        log(f"K3 equals plain on the HMAP bucket t2={t2} "
+            f"({len(b['idx'])} pairs, q2={query.size()})")
+
+    # the independent engine: dp_ref (numpy / its native build) on 2
+    # pairs, a homolog and the longest template
+    pair = [files.index(homologs[0]),
+            int(np.argmax([t.size() for t in templates]))]
+    costs = [ev.build_costs(query, templates[i]) for i in pair]
+    for c in costs:
+        want = dpp.forward_h_reference([c])
+        got = dpp.forward_h_batched([c], device=dev)
+        np.testing.assert_array_equal(got, want)
+        sc = ds.forward_scores_batch([c], device=dev)
+        np.testing.assert_array_equal(sc, want[:, -1, -1])
+        err["k3"] = max(err["k3"], float(np.abs(got - want).max()))
+    log(f"K3 equals dp_ref on 2 pairs (q2 x t2 = "
+        f"{', '.join(f'{c.q_size}x{c.t_size}' for c in costs)})")
+
+    alpha = float(np.float32(params.alpha))
+    shift = float(-np.float32(params.zero_shift))
+    for t2 in dict.fromkeys((near, longest)):
+        b = library.buckets[t2]
+        args = (qt["aa"], qt["zsse"], qt["conf"], b["aa"], b["zsse"],
+                b["conf"], alpha)
+        raw = hd.hmap_sim(*args)
+        want = hd.hmap_sim_plain(*args)
+        torch.cuda.synchronize()
+        assert same(raw, want), f"K5 != plain at t2={t2}"
+        err["k5"] = max(err["k5"], max_abs(raw, want))
+        for normalize in (True, False):
+            got = hd.hmap_znorm(raw, shift, normalize=normalize)
+            want = hd.hmap_znorm_plain(raw, shift, normalize=normalize)
+            torch.cuda.synchronize()
+            assert same(got, want), f"K6 != plain at t2={t2} ({normalize})"
+            err["k6"] = max(err["k6"], max_abs(got, want))
+    log(f"K5 and K6 equal plain on the buckets t2={near} and t2={longest}")
+
+    host_checked = 0
+    for t2, b in library.buckets.items():
+        S = hd.build_similarity_device(
+            qt["aa"], qt["zsse"], qt["conf"], b["aa"], b["zsse"], b["conf"],
+            alpha, shift).cpu().numpy()
+        for j, idx in enumerate(b["idx"]):
+            host = ev.build_costs(query, templates[idx]).S
+            assert (S[j].view(np.uint32) == host.view(np.uint32)).all(), \
+                f"producer S != host build_costs S for {files[idx]}"
+            host_checked += 1
+        if host_checked >= 16:
+            break
+    log(f"K5 + K6 S equals host HMAPaliEval.build_costs S bit for bit on "
+        f"{host_checked} templates")
+
+    # times: one full bucket, a 64-pair 258 x 258 batch, K5 + K6
+    b = library.buckets[near]
+    tabs = hd.bucket_tables(qt, b, params)
+    k3_ms = cuda_ms(lambda: ds.dp_general(*tabs), 5)
+    k3_plain_ms = cuda_ms(lambda: ds.dp_general_plain(*tabs), 1)
+    big = random_dp_tables(ds, rng, 64, 258, 258, dev, vec_d=True)
+    k3_64_ms = cuda_ms(lambda: ds.dp_general(*big), 3)
+    k3_64_plain_ms = cuda_ms(lambda: ds.dp_general_plain(*big), 1)
+    args = (qt["aa"], qt["zsse"], qt["conf"], b["aa"], b["zsse"], b["conf"],
+            alpha)
+    raw = hd.hmap_sim(*args)
+    k5_ms = cuda_ms(lambda: hd.hmap_sim(*args), 5)
+    k5_plain_ms = cuda_ms(lambda: hd.hmap_sim_plain(*args), 1)
+    k6_ms = cuda_ms(lambda: hd.hmap_znorm(raw, shift), 5)
+    k6_plain_ms = cuda_ms(lambda: hd.hmap_znorm_plain(raw, shift), 1)
+    shape = f"{len(b['idx'])}x{query.size()}x{near}"
+    log(f"K3 {k3_ms:.3f} ms vs plain {k3_plain_ms:.3f} ms on the bucket "
+        f"{shape}; {k3_64_ms:.3f} ms vs plain {k3_64_plain_ms:.3f} ms on "
+        f"64x258x258")
+    log(f"K5 {k5_ms:.3f} ms vs plain {k5_plain_ms:.3f} ms, K6 {k6_ms:.3f} "
+        f"ms vs plain {k6_plain_ms:.3f} ms on {shape}")
+    return ({"k3": (err["k3"], k3_ms, k3_plain_ms),
+             "k5": (err["k5"], k5_ms, k5_plain_ms),
+             "k6": (err["k6"], k6_ms, k6_plain_ms)},
+            {"bucket": shape, "k3_64x258x258_ms": k3_64_ms,
+             "k3_64x258x258_plain_ms": k3_64_plain_ms})
+
+
+def run_profile_screens(cli, d, qfn, lib_dir, files, homologs, card):
+    """Phase 5's CLI runs; returns the K3/K5/K6 launch counts of the
+    1024-template ``--profiles 1`` run (each set to 0 just before it)."""
+    from alignment_algos_tpu_torch.ops import dp_scores as ds
+    from alignment_algos_tpu_torch.ops import hmap_device as hd
+
+    counters = (ds.dp_general, hd.hmap_sim, hd.hmap_znorm)
+    query, templates, _ = cli.read_profiles(qfn, lib_dir)
+    q2 = query.size()
+    evals = sum(q2 * t.size() * (q2 + t.size()) for t in templates)
+    for fn in counters:
+        fn.launches = 0
+    out, wall = run_cli(cli.main, [qfn, lib_dir, "--profiles", "1",
+                                   "--top_k", str(TOP_K)])
+    launches = {"k3": ds.dp_general.launches, "k5": hd.hmap_sim.launches,
+                "k6": hd.hmap_znorm.launches}
+    assert all(v > 0 for v in launches.values()), launches
+    rows = rows_of(out)
+    assert len(rows) == TOP_K, out
+    assert {r[3] for r in rows[:N_HOMOLOGS]} == set(homologs), rows
+    log(f"--profiles 1: {len(templates)} templates, "
+        f"{len({t.size() for t in templates})} length buckets, wall "
+        f"{wall:.3f} s, {evals / wall:.4g} candidate evaluations/s "
+        f"({evals} evaluations; K3 +{launches['k3']}, K5 +{launches['k5']}, "
+        f"K6 +{launches['k6']} launches) on {card}")
+    log("  top hits: " + ", ".join(f"{os.path.basename(r[3])}={r[1]}"
+                                  for r in rows))
+
+    # the first N_SAME templates, on the card and on the CPU
+    lst = os.path.join(d, "first.txt")
+    with open(lst, "w") as f:
+        f.write("".join(fn + "\n" for fn in files[:N_SAME]))
+    smaps = os.path.join(d, "smaps.txt")
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data")
+    with open(smaps, "w") as f:
+        f.write("".join(os.path.join(data, fn) + "\n"
+                        for fn in ("templ_smap.prof", "templ_big.prof")))
+    for tag, argv in (
+            (f"--profiles 1, first {N_SAME}",
+             [qfn, lst, "--profiles", "1", "--top_k", str(TOP_K)]),
+            ("--smap 1, the SMAP fixtures",
+             [os.path.join(data, "query30.prof"), smaps, "--smap", "1",
+              "--top_k", "2"])):
+        before = ds.dp_general.launches
+        gpu, gpu_wall = run_cli(cli.main, argv)
+        assert ds.dp_general.launches > before, f"{tag}: K3 never launched"
+        device = os.environ["AAT_TORCH_DEVICE"]
+        os.environ["AAT_TORCH_DEVICE"] = "cpu"
+        try:
+            cpu, cpu_wall = run_cli(cli.main, argv)
+        finally:
+            os.environ["AAT_TORCH_DEVICE"] = device
+        assert gpu == cpu, f"{tag}: CUDA and CPU stdout differ"
+        assert len(rows_of(gpu)) >= 2, gpu
+        log(f"{tag}: CUDA stdout byte-equal to AAT_TORCH_DEVICE=cpu "
+            f"(card {gpu_wall:.3f} s, host CPU {cpu_wall:.3f} s)")
+    return launches, {"profiles_wall_s": wall, "candidate_evals": evals,
+                      "evals_per_s": evals / wall}
+
 
 def main() -> int:
     import torch
@@ -230,7 +538,7 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from alignment_algos_tpu_torch.cli import screen as cli
-    from alignment_algos_tpu_torch.ops import _build
+    from alignment_algos_tpu_torch.ops import _build, expf
     from alignment_algos_tpu_torch.ops import swaffine as sw
 
     os.environ["AAT_TORCH_DEVICE"] = "cuda"
@@ -245,6 +553,10 @@ def main() -> int:
     for line in built.log.splitlines():
         if any(w in line for w in ("registers", "spill", "smem", "Compiling")):
             log("  " + line.strip())
+    # the profile path's host code (gap vectors, the plain expf) must call
+    # glibc's expf; without its library the shared code uses np.exp
+    assert expf.host_libm_loaded(), "host libm expf library did not load"
+    log("host libm expf loaded (alignment_algos_tpu.native)")
 
     blosum = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "tests", "data", "BLOSUM62")
@@ -299,6 +611,19 @@ def main() -> int:
         assert rows_of(a) == rows_of(c), "checkpointed run differs from (a)"
         launches = {"k1": sw.sw_affine_scores.launches,
                     "k2": sw.sw_affine_tb.launches}
+
+        # phase 5: the exact profile screen
+        t0 = time.perf_counter()
+        qfn, lib_dir, files, hom_files = make_profile_library(d)
+        log(f"profiles: 1 query ({Q_PROF} residues) + {N_PROF} templates "
+            f"({TP_MIN}-{TP_MAX} residues, {N_HOMOLOGS} homologs) written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        prof_timing, prof_extra = check_profile_kernels(dev, qfn, lib_dir,
+                                                        hom_files, cli)
+        timing.update(prof_timing)
+        prof_launches, prof_run = run_profile_screens(
+            cli, d, qfn, lib_dir, files, hom_files, card)
+        launches.update(prof_launches)
     assert "jax" not in sys.modules, "the port imported jax"
 
     for k, (e, ms, pms) in timing.items():
@@ -315,7 +640,26 @@ def main() -> int:
          "replaces": "alignment_algos_tpu/ops/swaffine.py:178",
          "launches": launches["k2"], "max_abs_err": timing["k2"][0],
          "ms": timing["k2"][1], "plain_ms": timing["k2"][2]},
+        {"name": "dp_general_kernel (K3)", "route": "cuda", "source": K3_SRC,
+         "replaces": "alignment_algos_tpu/ops/dp_scores.py:62",
+         "also_replaces": ["alignment_algos_tpu/ops/dp_pallas.py:67"],
+         "launches": launches["k3"], "max_abs_err": timing["k3"][0],
+         "ms": timing["k3"][1], "plain_ms": timing["k3"][2],
+         "shape": prof_extra["bucket"],
+         "ms_64x258x258": prof_extra["k3_64x258x258_ms"],
+         "plain_ms_64x258x258": prof_extra["k3_64x258x258_plain_ms"]},
+        {"name": "hmap_sim_kernel (K5)", "route": "cuda", "source": K56_SRC,
+         "replaces": "alignment_algos_tpu/ops/hmap_device.py:137",
+         "launches": launches["k5"], "max_abs_err": timing["k5"][0],
+         "ms": timing["k5"][1], "plain_ms": timing["k5"][2],
+         "shape": prof_extra["bucket"]},
+        {"name": "hmap_znorm_kernel (K6)", "route": "cuda", "source": K56_SRC,
+         "replaces": "alignment_algos_tpu/ops/hmap_device.py:172",
+         "launches": launches["k6"], "max_abs_err": timing["k6"][0],
+         "ms": timing["k6"][1], "plain_ms": timing["k6"][2],
+         "shape": prof_extra["bucket"]},
     ]
+    log(json.dumps({"profiles_run": prof_run}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

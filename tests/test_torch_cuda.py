@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: K1 (scores) and K2 (tracebacks) are
 bit-equal to their plain PyTorch versions, run on the same card, and K1
-agrees with the numpy Gotoh oracle.
+agrees with the numpy Gotoh oracle; K3 (general-gap DP, both modes), K5
+(HMAP similarity) and K6 (z-norm) equal their plain versions, K3 equals the
+numpy ``dp_ref`` engine and K5 + K6 equal the host ``build_costs`` S.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports no JAX, so it runs
 where JAX is not installed:
@@ -9,10 +11,16 @@ where JAX is not installed:
         tests/test_torch_cuda.py
 """
 
+import io
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
+from alignment_algos_tpu_torch.ops import (dp_pallas, dp_scores, expf,
+                                           hmap_device)
 from alignment_algos_tpu_torch.ops import swaffine
 
 pytestmark = pytest.mark.cuda
@@ -99,3 +107,196 @@ def test_wrapper_counts_launches_and_rejects_bad_input(cuda):
         swaffine.sw_affine_scores(qd, td.long(), tab, gap)
     with pytest.raises(ValueError):
         swaffine.sw_affine_scores(qd, td + 30, tab, gap)
+
+
+# ------------------------------------------------- K3, K5, K6 (exact DP path)
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Tolerance 0: equal values and NaN at the same places."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return (a.shape == b.shape and torch.equal(na, nb)
+            and torch.equal(torch.where(na, 0.0, a), torch.where(nb, 0.0, b)))
+
+
+def _dp_tables(rng, n, q2, t2, dev, *, vec_d, with_c, align, zero):
+    """K3 inputs from random per-pair data: S with zero borders, gap
+    vectors (vec_d: rebuilt into D on the device) or a full random D, A/B
+    (and C) insertion coefficients."""
+    from alignment_algos_tpu.utils.params import AlignT
+    S = (rng.standard_normal((n, q2, t2)) * 2.0).astype(np.float32)
+    S[:, [0, -1], :] = 0.0
+    S[:, :, [0, -1]] = 0.0
+    gi = rng.uniform(0.5, 5.0, (n, t2)).astype(np.float32)
+    ge = rng.uniform(0.05, 1.0, (n, t2)).astype(np.float32)
+    if vec_d:
+        D = np.stack([gi, ge], axis=1)
+    else:
+        D = rng.uniform(0.0, 9.0, (n, t2, t2)).astype(np.float32)
+    A = np.minimum(gi, np.roll(gi, 1, axis=1))
+    B = np.minimum(ge, np.roll(ge, 1, axis=1))
+    C = rng.normal(0.0, 1.0, (n, t2)).astype(np.float32)
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+         for x in (S, D, A, B, C)]
+    return dp_scores.prepare_tables(
+        *t, zero_head=zero, zero_tail=zero, off=2 if vec_d else 1,
+        has_c=with_c, vec_d=vec_d,
+        del_free=vec_d and align in (AlignT.LOCAL, AlignT.SEMI_LOCAL,
+                                     AlignT.LOCAL_GLOBAL))
+
+
+# (1, 802, 770): past the TPU kernels' VMEM cap (no size gate here)
+K3_SHAPES = [(1, 3, 3), (3, 9, 7), (9, 13, 21), (1, 40, 33), (4, 258, 386),
+             (1, 802, 770)]
+
+
+@pytest.mark.parametrize("local", [False, True])
+@pytest.mark.parametrize("vec_d", [True, False], ids=["vec_d", "full_d"])
+@pytest.mark.parametrize("n,q2,t2", K3_SHAPES)
+def test_k3_equals_plain(cuda, n, q2, t2, vec_d, local):
+    from alignment_algos_tpu.utils.params import AlignT
+    rng = np.random.default_rng(n * 1000 + q2 + t2)
+    tabs = _dp_tables(rng, n, q2, t2, cuda, vec_d=vec_d, with_c=not vec_d,
+                      align=AlignT.SEMI_LOCAL, zero=vec_d)
+    for full_h in (False, True):
+        got = dp_scores.dp_general(*tabs, local=local, full_h=full_h)
+        torch.cuda.synchronize()
+        want = dp_scores.dp_general_plain(*tabs, local=local, full_h=full_h)
+        assert _same(got, want), (full_h, (got - want).abs().max())
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_k3_matches_dp_ref(cuda, local):
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from util import random_costs
+    from alignment_algos_tpu.utils.params import AlignT
+    rng = np.random.default_rng(11)
+    costs = [random_costs(rng, 40, 29, AlignT.GLOBAL_LOCAL, True)
+             for _ in range(2)]
+    got = dp_pallas.forward_h_batched(costs, local=local, device=cuda)
+    want = dp_pallas.forward_h_reference(costs, local=local)
+    np.testing.assert_array_equal(got, want)
+    sc = dp_scores.forward_scores_batch(costs, local=local, device=cuda)
+    np.testing.assert_array_equal(sc, want[:, -1, -1])
+
+
+def _profiles(rng, lengths):
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(root, "tools"))
+    from make_profiles import make_profile
+    from alignment_algos_tpu.seq.hmap import HMAPSequence
+    return [HMAPSequence.from_stream(io.StringIO(
+        make_profile(rng, f"s{i}", n))) for i, n in enumerate(lengths)]
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("q_len,t_len,n", [(30, 61, 3), (256, 300, 4)])
+def test_k5_k6_equal_plain_and_host(cuda, q_len, t_len, n, normalize):
+    from alignment_algos_tpu.scoring.hmap_eval import HMAPaliEval
+    from alignment_algos_tpu.utils.params import HMAPaliParams
+    assert expf.host_libm_loaded(), "host libm expf not loaded"
+    rng = np.random.default_rng(q_len + n)
+    params = HMAPaliParams()
+    params.normalize_mtx = normalize
+    ev = HMAPaliEval(params)
+    seqs = _profiles(rng, [q_len] + [t_len] * n)
+    query, templates = seqs[0], seqs[1:]
+    lib = hmap_device.DeviceLibrary(templates, ev, device=cuda)
+    (t2, b), = lib.buckets.items()
+    qp = {k: torch.from_numpy(v).to(cuda)
+          for k, v in hmap_device.pack_sequence(query).items()}
+    args = (qp["aa"], qp["zsse"], qp["conf"], b["aa"], b["zsse"], b["conf"],
+            float(np.float32(params.alpha)))
+    raw = hmap_device.hmap_sim(*args)
+    torch.cuda.synchronize()
+    assert _same(raw, hmap_device.hmap_sim_plain(*args))
+    shift = float(-np.float32(params.zero_shift))
+    S = hmap_device.hmap_znorm(raw, shift, normalize=normalize)
+    torch.cuda.synchronize()
+    assert _same(S, hmap_device.hmap_znorm_plain(raw, shift,
+                                                 normalize=normalize))
+    S = S.cpu().numpy()
+    for i, t in enumerate(templates):
+        host = ev.build_costs(query, t).S
+        assert (S[i].view(np.uint32) == host.view(np.uint32)).all(), i
+
+
+def test_new_wrappers_count_launches_and_reject_bad_input(cuda):
+    from alignment_algos_tpu.utils.params import AlignT
+    rng = np.random.default_rng(3)
+    tabs = _dp_tables(rng, 2, 9, 8, cuda, vec_d=True, with_c=False,
+                      align=AlignT.GLOBAL, zero=False)
+    n3 = dp_scores.dp_general.launches
+    dp_scores.dp_general(*tabs)
+    dp_scores.dp_general(*tabs, full_h=True)
+    assert dp_scores.dp_general.launches == n3 + 2
+    with pytest.raises(ValueError):
+        dp_scores.dp_general(tabs[0].cpu(), *tabs[1:])
+    with pytest.raises(TypeError):
+        dp_scores.dp_general(tabs[0].double(), *tabs[1:])
+    with pytest.raises(ValueError):
+        dp_scores.dp_general(tabs[0][:, :, :-1].contiguous(), *tabs[1:])
+    with pytest.raises(ValueError):
+        dp_scores.dp_general(tabs[0].transpose(1, 2), *tabs[1:])
+    S = torch.rand((2, 9, 8), device=cuda)
+    n5, n6 = hmap_device.hmap_sim.launches, hmap_device.hmap_znorm.launches
+    hmap_device.hmap_znorm(S, -0.12)
+    hmap_device.hmap_znorm(S, -0.12, normalize=False)
+    assert hmap_device.hmap_znorm.launches == n6 + 2
+    with pytest.raises(TypeError):
+        hmap_device.hmap_znorm(S.double(), -0.12)
+    q = torch.rand((9, 20), device=cuda)
+    t = torch.rand((2, 8, 20), device=cuda)
+    zq, zt = torch.rand((9, 3), device=cuda), torch.rand((2, 8, 3),
+                                                         device=cuda)
+    cq, ct = torch.rand(9, device=cuda), torch.rand((2, 8), device=cuda)
+    hmap_device.hmap_sim(q, zq, cq, t, zt, ct, 0.5)
+    assert hmap_device.hmap_sim.launches == n5 + 1
+    with pytest.raises(ValueError):
+        hmap_device.hmap_sim(q, zq, cq, t, zt, ct.cpu(), 0.5)
+    with pytest.raises(ValueError):
+        hmap_device.hmap_sim(q, zq, cq, t[:, :, :19].contiguous(), zt, ct,
+                             0.5)
+
+
+def test_k5_expf_replica_exhaustive(cuda):
+    """Every float32 x with |x| < 87 through K5's glibc expf replica,
+    against host libm bit for bit; the domain rule beyond.  With ka = ks =
+    1, unit profiles and confidences and alpha = 1, the similarity of query
+    row i is 1 * expf(((1 * (x_i * 1) / 1) * 1) * 1) = expf(x_i) exactly."""
+    from alignment_algos_tpu import native
+    assert expf.host_libm_loaded(), "host libm expf not loaded"
+    top = int(np.float32(87.0).view(np.int32))        # bits of 87.0
+    chunk = 1 << 26
+    t_one = torch.ones((1, 3, 1), device=cuda)
+    t_conf = torch.ones((1, 3), device=cuda)
+    checked = 0
+    for sign in (0, 1 << 31):
+        for lo in range(0, top, chunk):
+            m = min(chunk, top - lo)
+            bits = torch.arange(lo, lo + m, dtype=torch.int64,
+                                device=cuda) | sign
+            x = bits.to(torch.int32).view(torch.float32)
+            q_z = torch.ones((m + 2, 1), device=cuda)
+            q_z[1:-1, 0] = x
+            ones = torch.ones((m + 2, 1), device=cuda)
+            S = hmap_device.hmap_sim(ones, q_z, ones[:, 0].contiguous(),
+                                     t_one, t_one, t_conf, 1.0)
+            got = S[0, 1:-1, 1].cpu().numpy()
+            want = native.expf(x.cpu().numpy())
+            bad = np.flatnonzero(got.view(np.uint32) != want.view(np.uint32))
+            assert bad.size == 0, (sign, lo + int(bad[0]), got[bad[0]],
+                                   want[bad[0]])
+            checked += m
+    assert checked == 2 * top
+    # the domain rule: 0 for x <= -87 where libm is still positive; +inf
+    # and NaN similarities are zeroed by nan_to_num
+    edge = torch.tensor([-86.99, 87.0, 88.0, np.inf, -87.0, -104.0,
+                         -np.inf, np.nan], device=cuda)
+    ones = torch.ones((edge.numel() + 2, 1), device=cuda)
+    q_z = ones.clone()
+    q_z[1:-1, 0] = edge
+    args = (ones, q_z, ones[:, 0].contiguous(), t_one, t_one, t_conf, 1.0)
+    got = hmap_device.hmap_sim(*args)
+    assert _same(got, hmap_device.hmap_sim_plain(*args))
+    got = got[0, 1:-1, 1].cpu()
+    assert got[0] > 0 and got[1:].tolist() == [0.0] * 7

@@ -1,6 +1,7 @@
 """The port's library screen, checkpointed screen and ``aat_screen`` CLI
 against the JAX package: equal indices and scores (ties included), and
-byte-equal CLI output on the tests/test_screen_cli.py fixture recipe."""
+byte-equal CLI output (FASTA, --profiles 1 and --smap 1 modes) on the
+tests/test_screen_cli.py fixture recipes."""
 
 import io
 import os
@@ -150,13 +151,68 @@ def test_cli_subprocess_never_imports_jax(fastas):
     assert proc.stdout.strip().endswith("JAX_IMPORTED False")
 
 
-@pytest.mark.parametrize("mode", ["--profiles", "--smap"])
-def test_cli_unported_modes_fail_loudly(fastas, mode, monkeypatch):
+@pytest.fixture(scope="module")
+def profile_lib(tmp_path_factory):
+    """The tests/test_screen_cli.py profile fixture recipe: a 40-residue
+    query and four templates (two lengths, so two buckets)."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from make_profiles import make_profile
+    rng = np.random.default_rng(5)
+    d = tmp_path_factory.mktemp("torch_profiles")
+    (d / "lib").mkdir()
+    (d / "q.prof").write_text(make_profile(rng, "qry", 40))
+    for i, n in enumerate((40, 40, 52, 40)):
+        (d / "lib" / f"t{i}.prof").write_text(make_profile(rng, f"t{i}", n))
+    smaps = d / "smaps.txt"
+    smaps.write_text("".join(os.path.join(ROOT, "tests", "data", f) + "\n"
+                             for f in ("templ_smap.prof", "templ_big.prof")))
+    return str(d / "q.prof"), str(d / "lib"), str(smaps)
+
+
+def _profile_argv(profile_lib, mode):
+    qfn, lib, smaps = profile_lib
+    if mode == "smap":
+        return [os.path.join(ROOT, "tests", "data", "query30.prof"), smaps,
+                "--smap", "1", "--top_k", "2"]
+    argv = [qfn, lib, "--profiles", "1", "--top_k", "4"]
+    return argv + (["--CORE_MATCH_WEIGHT", "2.5"] if mode == "cmw" else [])
+
+
+@pytest.mark.parametrize("mode", ["profiles", "cmw", "smap"],
+                         ids=["profiles", "profiles_core_match_weight_2.5",
+                              "smap"])
+def test_cli_profile_modes_byte_equal_to_jax(profile_lib, mode, monkeypatch):
+    """--profiles 1 (HMAP producer + K3's plain version) and --smap 1
+    (Gn2Eval host costs + K3's plain version): stdout byte-equal to the JAX
+    tool (host costs + the XLA scan engine on the CPU)."""
+    from alignment_algos_tpu.cli import screen as jcli
     from alignment_algos_tpu_torch.cli import screen as tcli
     monkeypatch.setenv("AAT_TORCH_DEVICE", "cpu")
-    rc, out, err = _capture(tcli.main, [*fastas, mode, "1"])
-    assert rc != 0 and out == ""
-    assert "ROADMAP" in err and "slice 2" in err
+    argv = _profile_argv(profile_lib, mode)
+    outs = []
+    for main in (jcli.main, tcli.main):
+        rc, out, err = _capture(main, argv)
+        assert rc == 0, err
+        outs.append(out)
+    assert outs[0] == outs[1]
+    assert len([l for l in outs[1].splitlines() if "\t" in l
+                and not l.startswith("#")]) == (2 if mode == "smap" else 4)
+
+
+def test_cli_profiles_subprocess_never_imports_jax(profile_lib):
+    code = ("import sys\n"
+            "from alignment_algos_tpu_torch.cli.screen import main\n"
+            f"rc = main({_profile_argv(profile_lib, 'profiles')!r})\n"
+            "print('JAX_IMPORTED', 'jax' in sys.modules)\n"
+            "sys.exit(rc)\n")
+    env = dict(os.environ, AAT_TORCH_DEVICE="cpu",
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT, os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "# rank\tscore\tindex\tfile" in proc.stdout
+    assert proc.stdout.strip().endswith("JAX_IMPORTED False")
 
 
 def test_cli_refuses_cuda_without_a_card(fastas, monkeypatch):

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Stage breakdown and device idle share of the port's ``aat_screen`` on
-one NVIDIA GPU, at ``chip_smoke.py``'s main-path size (one 512-residue
-query against 5120 templates of 64-512 residues, padded to 512).
+one NVIDIA GPU, at ``chip_smoke.py``'s sizes.
 
-    python3 tools/torch_stage_profile.py [--repeats 4] [--trace DIR]
+    python3 tools/torch_stage_profile.py [--path fasta|profiles]
+                                         [--repeats 4] [--trace DIR]
+
+``--path fasta`` (the default): one 512-residue query against 5120
+templates of 64-512 residues, padded to 512.
 
 1. Replays the CLI's stages one by one, with ``torch.cuda.synchronize()``
    after each, ``--repeats`` times at both gap settings (the first repeat
@@ -15,6 +18,15 @@ query against 5120 templates of 64-512 residues, padded to 512).
    device event count and the largest device entries; with ``--trace DIR``
    also writes a Chrome trace per run there (tens of MB each).
 3. Times the plain PyTorch screen (``screen_library_host``) on the card.
+
+``--path profiles``: ``aat_screen --profiles 1``, one 256-residue query
+profile against 1024 template profiles of 128-384 residues.
+
+1. Replays the stages ``--repeats`` times, synchronizing after each:
+   profile parsing, the library's host packing and copy to the device,
+   then per length bucket K5, K6, the cost-table build, K3 and the score
+   pull (summed over the buckets), and the top-k.
+2. Runs the whole CLI once under ``torch.profiler`` (as above).
 
 Prints one JSON object with every number and the card's name and power
 limit.  Needs one GPU; run from the repository root.
@@ -95,6 +107,56 @@ def replay(qfa, lfa, blosum, gi, ge, dev):
     return st
 
 
+def replay_profiles(qfn, lib_dir, dev):
+    """One pass over ``--profiles 1``'s stages; returns {stage: seconds}
+    (the per-bucket stages summed over the buckets)."""
+    from alignment_algos_tpu_torch.cli import screen as cli
+    from alignment_algos_tpu_torch.ops import dp_scores as ds
+    from alignment_algos_tpu_torch.ops import hmap_device as hd
+
+    st = dict.fromkeys(("K5", "K6", "tables", "K3", "pull"), 0.0)
+    t0 = sync()
+    query, templates, _ = cli.read_profiles(qfn, lib_dir)
+    t1 = sync()
+    st["parse profiles"] = t1 - t0
+    params = hd.HMAPaliParams()
+    library = hd.DeviceLibrary(templates, hd.HMAPaliEval(params), device=dev)
+    qt = hd.query_tensors(query, dev)
+    t2 = sync()
+    st["library pack + to_device"] = t2 - t1
+    alpha = float(np.float32(params.alpha))
+    shift = float(-np.float32(params.zero_shift))
+    at = hd.AlignT(params.align_type)
+    zh, zt = hd.ins_zero_flags(at)
+    scores = np.zeros(len(templates), np.float32)
+    for b in library.buckets.values():
+        a = sync()
+        raw = hd.hmap_sim(qt["aa"], qt["zsse"], qt["conf"], b["aa"],
+                          b["zsse"], b["conf"], alpha)
+        b1 = sync()
+        S = hd.hmap_znorm(raw, shift)
+        b2 = sync()
+        tabs = ds.prepare_tables(
+            S, b["D"], b["A"], b["B"], torch.zeros_like(b["A"]),
+            zero_head=zh, zero_tail=zt, off=2, has_c=False, vec_d=True,
+            del_free=at in hd._DEL_FREE_OVERHANG_MODES)
+        b3 = sync()
+        out = ds.dp_general(*tabs)
+        b4 = sync()
+        scores[b["idx"]] = out.cpu().numpy()
+        b5 = sync()
+        for k, dt in zip(("K5", "K6", "tables", "K3", "pull"),
+                         (b1 - a, b2 - b1, b3 - b2, b4 - b3, b5 - b4)):
+            st[k] += dt
+    t3 = sync()
+    np.lexsort((np.arange(len(scores)), -scores))[:cs.TOP_K]
+    t4 = sync()
+    st["top-k"] = t4 - t3
+    st["total"] = t4 - t0
+    st["buckets"] = len(library.buckets)
+    return st
+
+
 def _union_us(spans) -> float:
     """Total length of the union of (start, end) intervals."""
     busy, end = 0.0, float("-inf")
@@ -138,6 +200,8 @@ def profiled_run(argv, trace_path=None):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--path", choices=("fasta", "profiles"),
+                    default="fasta")
     ap.add_argument("--repeats", type=int, default=4)
     ap.add_argument("--trace", default="",
                     help="directory for Chrome traces (default: none)")
@@ -156,6 +220,19 @@ def main() -> int:
     _build.load()
     blosum = os.path.join(ROOT, "tests", "data", "BLOSUM62")
     res = {"card": cs.card_line(), "stages": {}, "profiled": {}}
+    if args.path == "profiles":
+        with tempfile.TemporaryDirectory() as d:
+            qfn, lib_dir, _, _ = cs.make_profile_library(d)
+            res["stages"]["--profiles 1"] = [
+                replay_profiles(qfn, lib_dir, dev)
+                for _ in range(args.repeats)]
+            argv = [qfn, lib_dir, "--profiles", "1", "--top_k",
+                    str(cs.TOP_K)]
+            res["profiled"]["--profiles 1"] = profiled_run(
+                argv, args.trace and os.path.join(args.trace,
+                                                  "trace_profiles.json"))
+        print(json.dumps(res, indent=1))
+        return 0
     with tempfile.TemporaryDirectory() as d:
         qfa, lfa, _ = cs.make_fastas(d)
         for gi, ge in cs.GAPS:
