@@ -41,6 +41,8 @@ SIGNATURES = {
                      _P),
     "dp_general_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P),
+    "dp_tb_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _P),
     "hmap_sim_launch": (_P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I,
                         _P),
     "hmap_znorm_launch": (_P, _P, _P, _F, _I, _I, _I, _I, _P),

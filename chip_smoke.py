@@ -39,7 +39,26 @@
    and on the CPU (byte-equal stdout).  Times K3 on a full bucket and on a
    64-pair 258 x 258 batch, and K5 + K6 on a full bucket, each against its
    plain version.
-6. Prints the kernels' JSON line, the card line, and as the last line
+6. The exact DP builds behind the alignment tools.  Holds K7 (H, PQ and PT)
+   against its plain version on odd shapes, three sub-rectangles, a
+   bounded 130 x 97 build and a 386 x 404 pair, on random, Gn2-style,
+   integer-tie and |S|-near-1e8 costs, global and local; and against the
+   numpy ``dp_ref`` engine on 2 real-size pairs, nalign's HMAP pair and a
+   Gn2-style pair of path B's size (forward, and reverse with
+   ``bug_compat`` on and off), all with tolerance 0.  Times K7 and its
+   plain version on the 386 x 404 pair and at 182 x 224.  Then drives the
+   port's tools on the card, each byte-equal to the same tool with
+   ``AAT_DP_BACKEND=numpy``: path A, ``nalign`` on a 384-residue query
+   profile against a 402-residue homolog template generated from the seed
+   (cw, -ucw, -opt, -opt local); path B, ``gn2 -crcw`` with the production
+   overrides and ``gn2 -opt`` on the repository's 180 x 222 real-protein
+   fixture (K7 once per DP build: the first and one per round); and
+   ``S4_align`` on the 51-residue SMAP fixture, after one small run of
+   ``nalign`` and ``S4_align`` that builds the shared enumerators' native
+   libraries outside the timed runs.  Each run's wall is split
+   into its DP builds (cost model, engine) and the rest (enumeration,
+   output).
+7. Prints the kernels' JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the run with a non-zero exit code.
@@ -66,9 +85,17 @@ AA = "ARNDCQEGHILKMFPSTWYV"
 K1_SRC = K2_SRC = "alignment_algos_tpu_torch/ops/csrc/sw_gotoh.cu"
 K3_SRC = "alignment_algos_tpu_torch/ops/csrc/dp_general.cu"
 K56_SRC = "alignment_algos_tpu_torch/ops/csrc/hmap_device.cu"
+K7_SRC = "alignment_algos_tpu_torch/ops/csrc/dp_traceback.cu"
 # the exact profile screen
 Q_PROF, N_PROF, TP_MIN, TP_MAX = 256, 1024, 128, 384
 HOM_CORE, HOM_REDRAW, N_SAME = (20, 237), 0.3, 64
+# the alignment tools: nalign's query x homolog pair (the template is the
+# query's residues 20-363, 30% of their rows redrawn, between 31- and
+# 27-residue random flanks); gn2's production overrides (HMAPRC)
+NA_Q, NA_T, NA_CORE, NA_LEFT = 384, 402, (20, 364), 31
+GN2_PRODUCTION = ["--NUM_SUBOPT", "1000", "--DELTA_RATIO", "0.20",
+                  "--MAX_OVERLAP", "0.05", "--FINAL_OVERLAP", "0.30",
+                  "--ALIGN_MODE", "4"]
 
 
 def log(*a):
@@ -226,17 +253,22 @@ def check_kernels(sw, q, t, table, pad, dev):
             "k2": (err["k2"], k2_ms, k2_plain_ms)}
 
 
-def run_cli(main, argv):
+def run_cli(main, argv, *args, errors=None):
+    """stdout and wall seconds of one tool run (``main(argv, *args)``),
+    which must return 0; its stderr goes to the list ``errors`` if given."""
     import torch
     out, errs = io.StringIO(), io.StringIO()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(errs):
-        rc = main(argv)
+        rc = main(argv, *args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if rc != 0:
-        raise RuntimeError(f"aat_screen {argv} rc={rc}: {errs.getvalue()}")
+        raise RuntimeError(f"{main.__module__} {argv} rc={rc}: "
+                           f"{errs.getvalue()}")
+    if errors is not None:
+        errors.append(errs.getvalue())
     return out.getvalue(), wall
 
 
@@ -531,6 +563,275 @@ def run_profile_screens(cli, d, qfn, lib_dir, files, homologs, card):
                       "evals_per_s": evals / wall}
 
 
+# -------------------------------------- the exact DP builds behind the tools
+
+def make_nalign_pair(d: str):
+    """nalign's query profile and homolog template profile from SEED."""
+    rng = np.random.default_rng(SEED + 3)
+    qrows = _residues(rng, NA_Q)
+    core = list(qrows[NA_CORE[0]:NA_CORE[1]])
+    redraw = rng.choice(len(core), int(len(core) * HOM_REDRAW),
+                        replace=False)
+    for r, row in zip(redraw, _residues(rng, len(redraw))):
+        core[r] = row
+    trows = (_residues(rng, NA_LEFT) + core
+             + _residues(rng, NA_T - NA_LEFT - len(core)))
+    paths = []
+    for name, rows in (("na_query", qrows), ("na_templ", trows)):
+        paths.append(os.path.join(d, f"{name}.prof"))
+        with open(paths[-1], "w") as f:
+            f.write(_profile_text(name, rows))
+    return paths
+
+
+def k7_costs(de, rng, q2, t2, kind: str):
+    """A cost model (``de.DPCosts``) from random data: ``affine`` (D from
+    gap vectors with SEMI_LOCAL's free overhangs, ins_zero flags), ``gn2``
+    (a full random D, a C term, distance offset 1), ``ties`` (integer S and
+    costs) or ``big`` (S near 1e8, where an ulp exceeds the cost
+    differences)."""
+    f32 = np.float32
+    S = (rng.standard_normal((q2, t2)) * 2.0).astype(f32)
+    S[[0, -1], :] = 0.0
+    S[:, [0, -1]] = 0.0
+    gi = rng.uniform(0.5, 5.0, t2).astype(f32)
+    ge = rng.uniform(0.05, 1.0, t2).astype(f32)
+    dist = np.subtract.outer(np.arange(t2), np.arange(t2)).T     # j - k
+    D = (np.minimum.outer(gi, gi) + np.minimum.outer(ge, ge)
+         * (dist.astype(f32) - f32(2.0))).astype(f32)
+    D[dist < 2] = 0.0
+    D[0, :] = 0.0
+    D[:, -1] = 0.0
+    A, B = np.minimum(gi, np.roll(gi, 1)), np.minimum(ge, np.roll(ge, 1))
+    if kind == "gn2":
+        D = rng.uniform(0.0, 9.0, (t2, t2)).astype(f32)
+        D[dist < 2] = 0.0
+        return de.DPCosts(S=S, D=D, A=A, B=B, ins_zero_head_q=False,
+                          ins_zero_tail_q=False, ins_dist_offset=1,
+                          C=rng.normal(0.0, 1.0, t2).astype(f32))
+    if kind == "ties":
+        S[1:-1, 1:-1] = rng.integers(-2, 3, (q2 - 2, t2 - 2))
+        D, A, B = np.round(D), np.round(A), np.zeros_like(B)
+    if kind == "big":
+        S[1:-1, 1:-1] = f32(1.0e8) + S[1:-1, 1:-1] * f32(3)
+    return de.DPCosts(S=S, D=D, A=A, B=B, ins_zero_head_q=kind == "affine",
+                      ins_zero_tail_q=kind == "affine")
+
+
+def same_results(got, want, tag: str) -> None:
+    for name in ("H", "PQ", "PT"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name),
+                                      err_msg=f"{tag}: {name}")
+
+
+def nalign_costs(d: str, na_files):
+    """The cost model nalign builds for its pair (default HMAP
+    parameters)."""
+    from alignment_algos_tpu_torch.cli import screen as cli
+    from alignment_algos_tpu_torch.ops import hmap_device as hd
+
+    lst = os.path.join(d, "na_templ.txt")
+    with open(lst, "w") as f:
+        f.write(na_files[1] + "\n")
+    query, (templ,), _ = cli.read_profiles(na_files[0], lst)
+    return hd.HMAPaliEval(hd.HMAPaliParams()).build_costs(query, templ)
+
+
+def check_k7(dev, d, na_files, card):
+    """Phase 6's kernel checks, all with tolerance 0; returns K7's
+    (max_abs_err, ms, plain_ms) and the shape timed."""
+    import torch
+    from alignment_algos_tpu_torch.core import dp as tdp
+    from alignment_algos_tpu_torch.ops import dp_engine as de
+
+    err = 0.0
+    rng = np.random.default_rng(SEED + 4)
+
+    def vs_plain(costs, bounds, local, tag):
+        nonlocal err
+        q0, q1, t0, t1 = bounds
+        b = dict(q0=q0, q1=q1, t0=t0, t1=t1, local=local)
+        tabs = de.device_tables(costs, q0, q1, t0, t1, device=dev)
+        got = de.dp_forward_tb(*tabs, **b)
+        want = de.dp_forward_tb_plain(*tabs, **b)
+        torch.cuda.synchronize()
+        for g, w, name in zip(got, want, ("H", "PQ", "PT")):
+            assert torch.equal(g, w), f"K7 != plain ({name}): {tag}"
+        err = max(err, max_abs(got[0], want[0]))
+
+    shapes = [(1, 9, 7, None), (3, 13, 21, None), (2, 41, 33, None),
+              (1, 16, 15, (2, 10, 3, 12)), (1, 16, 15, (1, 14, 1, 13)),
+              (1, 16, 15, (4, 7, 2, 9)), (2, 130, 97, (7, 120, 11, 90)),
+              (1, 386, 404, None)]
+    for n, q2, t2, bounds in shapes:
+        for kind in ("affine", "gn2", "ties", "big"):
+            costs = [k7_costs(de, rng, q2, t2, kind) for _ in range(n)]
+            for local in (False, True):
+                vs_plain(costs, bounds or (0, q2 - 1, 0, t2 - 1), local,
+                         f"{kind} {n}x{q2}x{t2} {bounds} local={local}")
+    log("K7 equals plain (H, PQ, PT) on odd shapes, three sub-rectangles, "
+        "130 x 97 bounded and 386 x 404; affine, gn2 (C term), integer ties "
+        "and |S| near 1e8; global and local")
+
+    # the independent engine (dp_ref, numpy / native) on 2 pairs: nalign's
+    # HMAP pair and a Gn2-style pair of path B's size; forward global and
+    # local, reverse with bug_compat on and off
+    na = nalign_costs(d, na_files)
+    pairs = (na, k7_costs(de, rng, 182, 224, "gn2"))
+    for c in pairs:
+        bounds = (0, c.q_size - 1, 0, c.t_size - 1)
+        tag = f"{c.q_size}x{c.t_size}"
+        for direction, local, bug_compat in (("fwd", False, True),
+                                             ("fwd", True, True),
+                                             ("rev", False, True),
+                                             ("rev", False, False)):
+            same_results(
+                tdp.build(c, *bounds, direction, local, bug_compat,
+                          device=dev),
+                tdp.build(c, *bounds, direction, local, bug_compat),
+                f"K7 vs dp_ref {tag} {direction} local={local} "
+                f"bug_compat={bug_compat}")
+    c = k7_costs(de, np.random.default_rng(5), 10, 10, "affine")
+    c.S[5, 1] += np.float32(200.0)          # a closing-cell insertion wins
+    for bug_compat in (True, False):
+        got = tdp.build(c, 0, 9, 0, 9, "rev", False, bug_compat, device=dev)
+        same_results(got, tdp.build(c, 0, 9, 0, 9, "rev", False, bug_compat),
+                     f"K7 vs dp_ref 10x10 rev bug_compat={bug_compat}")
+        assert got.PT[0, 0] == (8 if bug_compat else 1), got.PT[0, 0]
+    log(f"K7 equals dp_ref on the pairs "
+        f"{', '.join(f'{c.q_size}x{c.t_size}' for c in pairs)} (HMAP, "
+        f"Gn2-style): forward global and local, reverse with bug_compat on "
+        f"and off")
+
+    # times at path A's pair (HMAP costs) and at path B's size (Gn2-style)
+    times = []
+    for c in pairs:
+        q2, t2 = c.q_size, c.t_size
+        tabs = de.device_tables([c], 0, q2 - 1, 0, t2 - 1, device=dev)
+        b = dict(q0=0, q1=q2 - 1, t0=0, t1=t2 - 1)
+        times.append((cuda_ms(lambda: de.dp_forward_tb(*tabs, **b), 5),
+                      cuda_ms(lambda: de.dp_forward_tb_plain(*tabs, **b), 2)))
+        log(f"K7 {times[-1][0]:.3f} ms vs plain {times[-1][1]:.3f} ms at one "
+            f"{q2} x {t2} pair on {card}")
+    extra = {"shape": f"1x{na.q_size}x{na.t_size}",
+             "ms_1x182x224": times[1][0], "plain_ms_1x182x224": times[1][1]}
+    return (err, *times[0]), extra
+
+
+def build_split(d, na_files, dev):
+    """Seconds of one nalign DP build on the card, split into the host cost
+    build and the K7 build (tables, launch, pull)."""
+    import torch
+    from alignment_algos_tpu_torch.core import dp as tdp
+
+    t0 = time.perf_counter()
+    c = nalign_costs(d, na_files)
+    t1 = time.perf_counter()
+    tdp.build(c, 0, c.q_size - 1, 0, c.t_size - 1, device=dev)
+    torch.cuda.synchronize()
+    return t1 - t0, time.perf_counter() - t1
+
+
+@contextlib.contextmanager
+def dp_build_timer(tdp):
+    """Host seconds spent inside the port's ``DPMatrix`` builds while the
+    block runs: ``build`` (the evaluator's cost model plus the engine) and
+    ``engine`` (``core.dp.build``: K7's tables, launch and pull, or
+    ``dp_ref``).  The rest of a tool's wall is enumeration and output."""
+    spent = {"build": 0.0, "engine": 0.0}
+    build, engine = tdp.DPMatrix._build, tdp.build
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return run
+
+    tdp.DPMatrix._build, tdp.build = timed(build, "build"), timed(engine,
+                                                                 "engine")
+    try:
+        yield spent
+    finally:
+        tdp.DPMatrix._build, tdp.build = build, engine
+
+
+def run_dp_paths(d, na_files, card):
+    """Phase 6's tool runs: each on the card with K7's count set to 0 just
+    before it, then on the host oracle (``AAT_DP_BACKEND=numpy``), stdout
+    byte-equal.  Returns K7's launches summed over the runs and per-run
+    records."""
+    from alignment_algos_tpu_torch.cli import gn2, nalign, s4_align
+    from alignment_algos_tpu_torch.core import dp as tdp
+    from alignment_algos_tpu_torch.ops import dp_engine as de
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data")
+    real = [os.path.join(data, "query_real.prof"),
+            os.path.join(data, "templ_real.prof")]
+    runs = [
+        ("A nalign cw", nalign.main, list(na_files), ()),
+        ("A nalign -ucw", nalign.main, [*na_files, "-ucw", "--DELTA_RATIO",
+                                        "0.05", "--NUM_SUBOPT", "30"], ()),
+        ("A nalign -opt", nalign.main, [*na_files, "-opt"], ()),
+        ("A nalign -opt local", nalign.main,
+         [*na_files, "-opt", "--ALIGN_MODE", "3"], ()),
+        ("B gn2 -crcw production", gn2.main,
+         real + ["-crcw", *GN2_PRODUCTION, "--OUTPUT_FORMAT", "2"], ()),
+        ("B gn2 -opt", gn2.main, real + ["-opt"], ()),
+        ("S4_align", s4_align.main,
+         [os.path.join(data, "templ_big.prof"),
+          os.path.join(data, "query_big.prof"), "--max_returned", "3"],
+         (False,)),
+    ]
+    # host set-up outside the timed runs: the shared enumerators build
+    # their native libraries (cw/ucw, SSSS search) at first use
+    inputs = os.path.join(data, os.pardir, "golden", "inputs")
+    run_cli(nalign.main, [os.path.join(inputs, "qA.prof"),
+                          os.path.join(inputs, "tA.prof")])
+    run_cli(s4_align.main, [os.path.join(data, "templ_smap.prof"),
+                            os.path.join(data, "query30.prof"),
+                            "--max_returned", "1"], False)
+    tdp.set_backend("auto")
+    total, records = 0, []
+    for tag, main, argv, extra in runs:
+        errors = []
+        de.dp_forward_tb.launches = 0
+        with dp_build_timer(tdp) as card_s:
+            out, wall = run_cli(main, argv, *extra, errors=errors)
+        launches = de.dp_forward_tb.launches
+        assert launches >= 1, f"{tag}: K7 never launched"
+        if "-crcw" in argv:
+            rounds = sum(l.startswith("ROUND ")
+                         for l in errors[0].splitlines())
+            assert launches == 1 + rounds >= 2, (launches, rounds)
+        tdp.set_backend("numpy")
+        try:
+            with dp_build_timer(tdp) as host_s:
+                want, host_wall = run_cli(main, argv, *extra)
+        finally:
+            tdp.set_backend("auto")
+        assert out == want, f"{tag}: stdout differs from AAT_DP_BACKEND=numpy"
+        assert out.strip(), f"{tag}: empty stdout"
+        total += launches
+        records.append({"run": tag, "wall_s": wall, "k7_launches": launches,
+                        "dp_build_s": card_s["build"],
+                        "dp_engine_s": card_s["engine"],
+                        "host_oracle_wall_s": host_wall,
+                        "host_oracle_dp_build_s": host_s["build"],
+                        "host_oracle_dp_engine_s": host_s["engine"],
+                        "stdout_bytes": len(out)})
+        log(f"{tag}: wall {wall:.3f} s on the card (K7 +{launches} "
+            f"launches; DP builds {card_s['build']:.3f} s, of which the "
+            f"engine {card_s['engine']:.3f} s), {host_wall:.3f} s on "
+            f"AAT_DP_BACKEND=numpy (builds {host_s['build']:.3f} s, engine "
+            f"{host_s['engine']:.3f} s); stdout byte-equal ({len(out)} bytes) "
+            f"on {card}")
+    return total, records
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -624,6 +925,15 @@ def main() -> int:
         prof_launches, prof_run = run_profile_screens(
             cli, d, qfn, lib_dir, files, hom_files, card)
         launches.update(prof_launches)
+
+        # phase 6: the exact DP builds behind the alignment tools
+        na_files = make_nalign_pair(d)
+        timing["k7"], k7_extra = check_k7(dev, d, na_files, card)
+        costs_s, k7_build_s = build_split(d, na_files, dev)
+        log(f"nalign DP build at {k7_extra['shape']}: host costs "
+            f"{costs_s:.3f} s, K7 build (tables, launch, pull) "
+            f"{k7_build_s:.3f} s on {card}")
+        launches["k7"], dp_runs = run_dp_paths(d, na_files, card)
     assert "jax" not in sys.modules, "the port imported jax"
 
     for k, (e, ms, pms) in timing.items():
@@ -658,8 +968,15 @@ def main() -> int:
          "launches": launches["k6"], "max_abs_err": timing["k6"][0],
          "ms": timing["k6"][1], "plain_ms": timing["k6"][2],
          "shape": prof_extra["bucket"]},
+        {"name": "dp_tb_kernel (K7)", "route": "cuda", "source": K7_SRC,
+         "replaces": "alignment_algos_tpu/ops/dp_engine.py:37",
+         "also_replaces": ["alignment_algos_tpu/ops/dp_engine.py:210"],
+         "launches": launches["k7"], "max_abs_err": timing["k7"][0],
+         "ms": timing["k7"][1], "plain_ms": timing["k7"][2], **k7_extra},
     ]
     log(json.dumps({"profiles_run": prof_run}))
+    log(json.dumps({"dp_runs": dp_runs, "nalign_build_split_s": {
+        "host_costs": costs_s, "k7_build": k7_build_s}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -300,3 +300,105 @@ def test_k5_expf_replica_exhaustive(cuda):
     assert _same(got, hmap_device.hmap_sim_plain(*args))
     got = got[0, 1:-1, 1].cpu()
     assert got[0] > 0 and got[1:].tolist() == [0.0] * 7
+
+
+# ------------------------------------------------ K7 (DP builds with tracebacks)
+
+def _k7_costs(rng, q2, t2, kind):
+    """A cost model from random data: ``affine`` (gap-vector D, SEMI_LOCAL
+    zero flags), ``gn2`` (full random D, a C term, distance offset 1),
+    ``ties`` (integer S and costs) or ``big`` (S near 1e8, where an ulp
+    exceeds the cost differences)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from util import random_costs
+    from alignment_algos_tpu.scoring.base import DPCosts
+    from alignment_algos_tpu.utils.params import AlignT
+    c = random_costs(rng, q2, t2, AlignT.SEMI_LOCAL, kind == "affine")
+    if kind == "gn2":
+        D = rng.uniform(0.0, 9.0, (t2, t2)).astype(np.float32)
+        D[np.subtract.outer(np.arange(t2), np.arange(t2)) > -2] = 0.0
+        return DPCosts(S=c.S, D=D, A=c.A, B=c.B, ins_zero_head_q=False,
+                       ins_zero_tail_q=False, ins_dist_offset=1,
+                       C=rng.normal(0.0, 1.0, t2).astype(np.float32))
+    if kind == "ties":
+        c.S[1:-1, 1:-1] = rng.integers(-2, 3, (q2 - 2, t2 - 2))
+        c.D[:] = np.round(c.D)
+        c.A[:] = np.round(c.A)
+        c.B[:] = 0.0
+    if kind == "big":
+        c.S[1:-1, 1:-1] = np.float32(1.0e8) + c.S[1:-1, 1:-1] * np.float32(3)
+    return c
+
+
+# (n, q2, t2, (q0, q1, t0, t1) or None for the whole matrix)
+K7_SHAPES = [(1, 9, 7, None), (3, 13, 21, None), (2, 41, 33, None),
+             (1, 16, 15, (2, 10, 3, 12)), (1, 16, 15, (1, 14, 1, 13)),
+             (1, 16, 15, (4, 7, 2, 9)), (2, 130, 97, (7, 120, 11, 90)),
+             (1, 386, 404, None)]
+
+
+@pytest.mark.parametrize("kind", ["affine", "gn2", "ties", "big"])
+@pytest.mark.parametrize("local", [False, True])
+@pytest.mark.parametrize("n,q2,t2,bounds", K7_SHAPES)
+def test_k7_equals_plain(cuda, n, q2, t2, bounds, local, kind):
+    from alignment_algos_tpu_torch.ops import dp_engine
+    rng = np.random.default_rng(q2 * 1000 + t2 + n)
+    costs = [_k7_costs(rng, q2, t2, kind) for _ in range(n)]
+    q0, q1, t0, t1 = bounds or (0, q2 - 1, 0, t2 - 1)
+    b = dict(q0=q0, q1=q1, t0=t0, t1=t1, local=local)
+    tabs = dp_engine.device_tables(costs, q0, q1, t0, t1, device=cuda)
+    got = dp_engine.dp_forward_tb(*tabs, **b)
+    torch.cuda.synchronize()
+    want = dp_engine.dp_forward_tb_plain(*tabs, **b)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_k7_matches_dp_ref(cuda, local):
+    """Two pairs against the numpy/native engine, forward and reverse
+    (bug_compat on and off), plus the batched build."""
+    from alignment_algos_tpu.ops import dp_ref
+    from alignment_algos_tpu_torch.ops import dp_engine
+    rng = np.random.default_rng(12)
+    costs = [_k7_costs(rng, 60, 47, kind) for kind in ("affine", "gn2")]
+    costs[1].S[20, 1] += np.float32(200.0)   # a reverse insertion winner
+    for c in costs:
+        q1, t1 = c.q_size - 1, c.t_size - 1
+        got = dp_engine.build_forward(c, 0, q1, 0, t1, local, device=cuda)
+        want = dp_ref.build_forward(c, 0, q1, 0, t1, local=local)
+        for name in ("H", "PQ", "PT"):
+            np.testing.assert_array_equal(getattr(got, name),
+                                          getattr(want, name))
+        for bug_compat in (True, False):
+            got = dp_engine.build_reverse(c, 0, q1, 0, t1, local, bug_compat,
+                                          device=cuda)
+            want = dp_ref.build_reverse(c, 0, q1, 0, t1, local=local,
+                                        bug_compat=bug_compat)
+            for name in ("H", "PQ", "PT"):
+                np.testing.assert_array_equal(getattr(got, name),
+                                              getattr(want, name))
+    pair = [_k7_costs(rng, 60, 47, "affine") for _ in range(3)]
+    for got, c in zip(dp_engine.build_forward_batched(pair, local,
+                                                      device=cuda), pair):
+        want = dp_ref.build_forward(c, 0, 59, 0, 46, local=local)
+        np.testing.assert_array_equal(got.PQ, want.PQ)
+        np.testing.assert_array_equal(got.H, want.H)
+
+
+def test_k7_counts_launches_and_rejects_bad_input(cuda):
+    from alignment_algos_tpu_torch.ops import dp_engine
+    rng = np.random.default_rng(4)
+    tabs = dp_engine.device_tables([_k7_costs(rng, 9, 8, "affine")], 0, 8,
+                                   0, 7, device=cuda)
+    b = dict(q0=0, q1=8, t0=0, t1=7)
+    n = dp_engine.dp_forward_tb.launches
+    dp_engine.dp_forward_tb(*tabs, **b)
+    dp_engine.dp_forward_tb(*tabs, **b, local=True)
+    assert dp_engine.dp_forward_tb.launches == n + 2
+    with pytest.raises(ValueError):
+        dp_engine.dp_forward_tb(tabs[0].cpu(), *tabs[1:], **b)
+    with pytest.raises(TypeError):
+        dp_engine.dp_forward_tb(tabs[0].double(), *tabs[1:], **b)
+    with pytest.raises(ValueError):
+        dp_engine.dp_forward_tb(*tabs, **dict(b, t1=8))

@@ -1,0 +1,196 @@
+"""The port's general-gap DP builds with tracebacks (K7's plain version,
+through ``ops/dp_engine``) against the JAX package's ``dp_engine`` (the XLA
+scan on the CPU) and the numpy ``dp_ref`` engine, on the same cost models.
+Tolerance 0 everywhere: H, PQ and PT are compared with
+``np.testing.assert_array_equal``.  Shapes stay at 16 or fewer so that the
+XLA compiles stay cheap."""
+
+import numpy as np
+import pytest
+import torch
+
+from alignment_algos_tpu.ops import dp_engine as jde
+from alignment_algos_tpu.ops import dp_ref
+from alignment_algos_tpu.scoring.base import DPCosts
+from alignment_algos_tpu.utils.params import AlignT
+from alignment_algos_tpu_torch.ops import dp_engine
+
+from util import random_costs
+
+CPU = torch.device("cpu")
+
+# tests/test_dp_engine.py's CASES: (q2, t2, align_type, zero_flags, local)
+CASES = [
+    (8, 9, AlignT.GLOBAL, False, False),
+    (9, 7, AlignT.SEMI_LOCAL, True, False),
+    (10, 10, AlignT.GLOBAL, False, True),
+    (14, 11, AlignT.GLOBAL_LOCAL, True, False),
+    (7, 13, AlignT.LOCAL, True, True),
+]
+
+
+def assert_same(*results):
+    for r in results[1:]:
+        np.testing.assert_array_equal(r.H, results[0].H)
+        np.testing.assert_array_equal(r.PQ, results[0].PQ)
+        np.testing.assert_array_equal(r.PT, results[0].PT)
+
+
+def check_forward(c, q0, q1, t0, t1, local):
+    got = dp_engine.build_forward(c, q0, q1, t0, t1, local, device=CPU)
+    assert got.H.dtype == np.float32 and got.PQ.dtype == np.int32
+    assert_same(got, jde.build_forward_jax(c, q0, q1, t0, t1, local=local),
+                dp_ref.build_forward(c, q0, q1, t0, t1, local=local))
+    return got
+
+
+@pytest.mark.parametrize("q2,t2,atype,zf,local", CASES)
+def test_forward_matches_jax_and_dp_ref(q2, t2, atype, zf, local):
+    rng = np.random.default_rng(q2 * 100 + t2)
+    check_forward(random_costs(rng, q2, t2, atype, zf), 0, q2 - 1, 0,
+                  t2 - 1, local)
+
+
+@pytest.mark.parametrize("bounds", [(2, 3, 10, 12), (1, 1, 14, 13),
+                                    (4, 2, 7, 9)])
+def test_subrectangles(bounds):
+    """build_subdpm rectangles (q0, t0, q1, t1), as tests/test_dp_engine.py
+    and the SSSS loop fills use them."""
+    q0, t0, q1, t1 = bounds
+    c = random_costs(np.random.default_rng(0), 16, 15, AlignT.GLOBAL, False)
+    check_forward(c, q0, q1, t0, t1, False)
+
+
+@pytest.mark.parametrize("bug_compat", [True, False])
+def test_reverse_matches_jax_and_dp_ref(bug_compat):
+    """The closing-cell insertion winner of the reverse build records t1-1
+    under bug_compat (dpmatrix.h:868); a large similarity at (5, 1) makes
+    an insertion win there."""
+    c = random_costs(np.random.default_rng(5), 10, 10, AlignT.GLOBAL, False)
+    c.S[5, 1] += np.float32(200.0)
+    got = dp_engine.build_reverse(c, 0, 9, 0, 9, False, bug_compat,
+                                  device=CPU)
+    assert_same(got, jde.build_reverse_jax(c, 0, 9, 0, 9,
+                                           bug_compat=bug_compat),
+                dp_ref.build_reverse(c, 0, 9, 0, 9, bug_compat=bug_compat))
+    assert got.PQ[0, 0] == 5
+    assert got.PT[0, 0] == (8 if bug_compat else 1)
+
+
+@pytest.mark.parametrize("q2,t2,atype,zf,local", CASES[1:4])
+def test_reverse_cases(q2, t2, atype, zf, local):
+    rng = np.random.default_rng(q2 * 7 + t2)
+    c = random_costs(rng, q2, t2, atype, zf)
+    got = dp_engine.build_reverse(c, 0, q2 - 1, 0, t2 - 1, local,
+                                  device=CPU)
+    assert_same(got, jde.build_reverse_jax(c, 0, q2 - 1, 0, t2 - 1,
+                                           local=local),
+                dp_ref.build_reverse(c, 0, q2 - 1, 0, t2 - 1, local=local))
+
+
+def test_batched_matches_jax():
+    rng = np.random.default_rng(9)
+    costs = [random_costs(rng, 12, 11, AlignT.SEMI_LOCAL, True)
+             for _ in range(3)]
+    got = dp_engine.build_forward_batched(costs, device=CPU)
+    want = jde.build_forward_jax_batched(costs)
+    assert len(got) == 3
+    for g, w, c in zip(got, want, costs):
+        assert_same(g, w, dp_ref.build_forward(c, 0, 11, 0, 10))
+
+
+def _collapsed_deletion_ties(c, res, local):
+    """Interior cells whose deletion candidates differ before the add of
+    the similarity and tie after it (the first of them is the
+    traceback)."""
+    q2, t2 = c.S.shape
+    n = 0
+    for i in range(2, q2 - 1):
+        for j in range(3, t2 - 1):
+            x = res.H[i - 1, 1:j - 1] - c.D[1:j - 1, j]
+            v = x + c.S[i, j]
+            if local:
+                v = np.maximum(np.float32(0.0), v)
+            top = v == v.max()
+            n += int(top.sum() > 1 and np.unique(x[top]).size > 1)
+    return n
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_trap_argmax_after_add_and_clamp(local):
+    """|S| near 1e8, where an ulp exceeds the cost differences: candidates
+    that differ before the add round to one value after it, and the first
+    of them must win (not the larger before the add).  In local mode most
+    candidates clamp to zero and the first k among the zeros wins."""
+    rng = np.random.default_rng(17)
+    c = random_costs(rng, 14, 13, AlignT.GLOBAL, False)
+    if local:
+        c.S[1:-1, 1:-1] = -np.abs(c.S[1:-1, 1:-1]) * np.float32(5.0e7)
+        c.S[3:-3, 3:-3] += np.float32(2.0e8)
+    else:
+        c.S[1:-1, 1:-1] = np.float32(1.0e8) + c.S[1:-1, 1:-1] * np.float32(3)
+    res = check_forward(c, 0, 13, 0, 12, local)
+    assert _collapsed_deletion_ties(c, res, local) > 0
+
+
+def test_trap_insertion_ties_take_the_lowest_row():
+    """Integer similarities and a constant insertion cost: insertion
+    candidates from two rows tie, and the lower row is the traceback
+    (ascending k, strict >)."""
+    rng = np.random.default_rng(23)
+    q2, t2 = 15, 12
+    S = rng.integers(-2, 3, (q2, t2)).astype(np.float32)
+    S[[0, -1], :] = 0.0
+    S[:, [0, -1]] = 0.0
+    D = np.full((t2, t2), 9.0, np.float32)
+    D[np.subtract.outer(np.arange(t2), np.arange(t2)) > -2] = 0.0
+    c = DPCosts(S=S, D=D, A=np.ones(t2, np.float32),
+                B=np.zeros(t2, np.float32), ins_zero_head_q=False,
+                ins_zero_tail_q=False)
+    res = check_forward(c, 0, q2 - 1, 0, t2 - 1, False)
+    ties = 0
+    for i in range(3, q2 - 1):
+        for j in range(2, t2 - 1):
+            k = res.PQ[i, j]
+            if res.PT[i, j] == j - 1 and k < i - 1:      # an insertion won
+                cand = res.H[1:i - 1, j - 1] - np.float32(1.0) + S[i, j]
+                hits = np.flatnonzero(cand == res.H[i, j]) + 1
+                assert hits[0] == k
+                ties += hits.size > 1
+    assert ties > 0
+
+
+def test_wrapper_routes_cpu_tensors_and_rejects_bad_input():
+    """On CPU tensors K7's wrapper is its plain version (no launch); it
+    rejects what the kernel does not take."""
+    c = random_costs(np.random.default_rng(3), 9, 11, AlignT.GLOBAL, True)
+    tabs = dp_engine.device_tables([c], 0, 8, 0, 10, device=CPU)
+    b = dict(q0=0, q1=8, t0=0, t1=10)
+    n = dp_engine.dp_forward_tb.launches
+    for got, want in zip(dp_engine.dp_forward_tb(*tabs, **b),
+                         dp_engine.dp_forward_tb_plain(*tabs, **b)):
+        assert torch.equal(got, want)
+    assert dp_engine.dp_forward_tb.launches == n
+    with pytest.raises(TypeError):
+        dp_engine.dp_forward_tb(tabs[0].double(), *tabs[1:], **b)
+    with pytest.raises(ValueError):
+        dp_engine.dp_forward_tb(tabs[0][:, :, :5].contiguous(), *tabs[1:],
+                                **b)
+    with pytest.raises(ValueError):
+        dp_engine.dp_forward_tb(*tabs[:2], tabs[2].transpose(1, 2), *tabs[3:],
+                                **b)
+    for bad in (dict(b, q1=9), dict(b, t0=9), dict(b, q0=7)):
+        with pytest.raises(ValueError):
+            dp_engine.dp_forward_tb(*tabs, **bad)
+    with pytest.raises(ValueError):
+        dp_engine.build_forward_batched(
+            [c, random_costs(np.random.default_rng(4), 9, 12)], device=CPU)
+
+
+@pytest.mark.parametrize("bounds", [(2, 3, 1, 6), (1, 6, 2, 3)])
+def test_one_row_or_column_routes_to_dp_ref(bounds):
+    q0, q1, t0, t1 = bounds
+    c = random_costs(np.random.default_rng(1), 8, 8, AlignT.GLOBAL, False)
+    got = dp_engine.build_forward(c, q0, q1, t0, t1, device=CPU)
+    assert_same(got, dp_ref.build_forward(c, q0, q1, t0, t1))
+    assert (got.PQ[q1, t1], got.PT[q1, t1]) == (q0, t0)
