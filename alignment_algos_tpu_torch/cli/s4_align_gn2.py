@@ -1,5 +1,5 @@
-"""``S4_align_gn2`` on the port's DP builds (counterpart of
-``alignment_algos_tpu/cli/s4_align_gn2.py``); see s4_align.py."""
+"""``S4_align_gn2`` — SSSS enumeration with the Gn2Eval score
+(S4_align_gn2.cpp); see s4_align.py."""
 
 import sys
 

@@ -33,16 +33,55 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from alignment_algos_tpu.cli.screen import (PAD_WALL, encode_library,
-                                            padded_table, read_fasta_plain)
-from alignment_algos_tpu.scoring.submatrix import BlosumMatrix
-from alignment_algos_tpu.utils.params import (AliParams, ApplicationParams,
-                                              Argv, RCfile, apply_layers)
-
+from ..scoring.submatrix import BlosumMatrix
+from ..utils.params import (AliParams, ApplicationParams, Argv, RCfile,
+                            apply_layers)
 from ..utils.torchenv import device_from_env
 
 __all__ = ["PAD_WALL", "ScreenInputs", "main", "read_inputs",
            "read_profiles"]
+
+# the JAX package's aat_screen encoding (cli/screen.py:37-76), verbatim
+PAD_WALL = -1.0e4
+
+
+def read_fasta_plain(fn: str) -> list[tuple[str, str]]:
+    """[(name, residues)] — plain multi-FASTA, no sentinels."""
+    out: list[tuple[str, str]] = []
+    name = None
+    chunks: list[str] = []
+    with open(fn) as f:
+        for line in f:
+            line = line.strip()
+            if line.startswith(">"):
+                if name is not None:
+                    out.append((name, "".join(chunks)))
+                name = line[1:].strip() or f"seq_{len(out)}"
+                chunks = []
+            elif line:
+                chunks.append(line.replace(" ", ""))
+    if name is not None:
+        out.append((name, "".join(chunks)))
+    if not out:
+        raise ValueError(f"no sequences in {fn}")
+    return out
+
+
+def encode_library(seqs: list[str], index: dict[str, int], pad_code: int):
+    """Pad-encode to (N, Tmax) int32 with the pad wall code."""
+    tmax = max(len(s) for s in seqs)
+    codes = np.full((len(seqs), tmax), pad_code, dtype=np.int32)
+    for i, s in enumerate(seqs):
+        codes[i, : len(s)] = [index[c] for c in s.upper()]
+    return codes
+
+
+def padded_table(bl: BlosumMatrix):
+    """Substitution table extended with a pad row/col of PAD_WALL."""
+    n = len(bl.alphabet)
+    t = np.full((n + 1, n + 1), PAD_WALL, dtype=np.float32)
+    t[:n, :n] = bl.matrix
+    return t, n  # pad code = n
 
 
 class ScreenInputs(NamedTuple):
@@ -158,7 +197,7 @@ def read_profiles(query_fn: str, lib_arg: str, smap: bool = False):
     import glob
     import os
 
-    from alignment_algos_tpu.seq.hmap import HMAPSequence
+    from ..seq.hmap import HMAPSequence
 
     query = HMAPSequence.from_file(query_fn)
     if os.path.isdir(lib_arg):
@@ -169,7 +208,7 @@ def read_profiles(query_fn: str, lib_arg: str, smap: bool = False):
     if not files:
         raise ValueError(f"no template profiles found in {lib_arg}")
     if smap:
-        from alignment_algos_tpu.structure.smap import SMAPSequence
+        from ..structure.smap import SMAPSequence
         templates = [SMAPSequence.from_file(fn, gn2=True) for fn in files]
     else:
         templates = [HMAPSequence.from_file(fn) for fn in files]
@@ -185,14 +224,13 @@ def _run_profiles(args, k: int, rc, top, device: torch.device,
     query, templates, files = read_profiles(args.get_arg(0), args.get_arg(1),
                                             smap=smap)
     if smap:
-        from alignment_algos_tpu.scoring.gn2_eval import Gn2Eval, Gn2Params
+        from ..scoring.gn2_eval import Gn2Eval, Gn2Params
         params = Gn2Params()
         apply_layers([params], rc, top, args)
         factory = lambda q, t: Gn2Eval(params)
         kind = "SMAP structure"
     else:
-        from alignment_algos_tpu.scoring.hmap_eval import (HMAPaliEval,
-                                                           HMAPaliParams)
+        from ..scoring.hmap_eval import HMAPaliEval, HMAPaliParams
         params = HMAPaliParams()
         apply_layers([params], rc, top, args)
         factory = lambda q, t: HMAPaliEval(params)
@@ -218,9 +256,8 @@ def _cluster_hits(q_codes, t_codes, table, gi, ge, idx, names,
     shared query axis, and the hit-hit distance is Ali_Dist's exact area
     between two polylines divided by the query length
     (ali_dist.cpp:160-414,633-638)."""
-    from alignment_algos_tpu.analysis.ali_dist import ResPair, area_matrix
-    from alignment_algos_tpu.analysis.upgma import UPGMAClusterer
-
+    from ..analysis.ali_dist import ResPair, area_matrix
+    from ..analysis.upgma import UPGMAClusterer
     from ..ops import swaffine
 
     hits = t_codes[np.asarray(idx, dtype=np.int64)]

@@ -1,37 +1,36 @@
-"""DP matrix orchestration on PyTorch + CUDA (counterpart of
-``alignment_algos_tpu/core/dp.py``).
+"""DP matrix orchestration (DPMatrix in dpmatrix.h) on PyTorch + CUDA.
 
-The port's :class:`DPMatrix` is the reference class with one method
-replaced, ``_build``, which routes the build as the reference does
+A copy of ``alignment_algos_tpu/core/dp.py`` whose builds run on the
+port's engines.  ``DPMatrix._build`` routes as the reference's does
 (core/dp.py:105-137):
 
-1. constant-affine whole-matrix forward builds: the shared host fast path
-   ``dp_affine``;
+1. constant-affine whole-matrix forward builds: the host fast path
+   :mod:`..ops.dp_affine`;
 2. rectangles with a side of ``AUTO_MIN_SIZE`` or more, or every build under
    the ``torch`` backend: K7 through :mod:`..ops.dp_engine`, on the device
    that ``AAT_TORCH_DEVICE`` names;
-3. smaller rectangles, or every build under the ``numpy`` backend: the
-   shared host oracle ``dp_ref``.
+3. smaller rectangles, or every build under the ``numpy`` backend: the host
+   oracle :mod:`..ops.dp_ref`.
 
 ``AAT_DP_BACKEND`` (``auto`` by default, ``torch`` or ``numpy``) picks the
-backend, as it does for the JAX package (where the device backend is
-called ``jax``).  Constructor, accessors and ``reevaluate`` (gn2's
-per-round rebuild) are the reference's.  :func:`build` runs one build of
-a cost model on K7 or on ``dp_ref``, outside any ``DPMatrix``.
+backend, as it does for the JAX package (where the device backend is called
+``jax``).  ``reevaluate`` rebuilds the cost model and runs the engine again,
+the cheap-rebuild path of gn2's iterative rounds (dpmatrix.h:213-218).
+:func:`build` runs one build of a cost model on K7 or on ``dp_ref``, outside
+any ``DPMatrix``.
 """
 
 from __future__ import annotations
 
 import os
 
-from alignment_algos_tpu.core import dp as _ref
-from alignment_algos_tpu.ops import dp_affine, dp_ref
-
-from ..ops import dp_engine
+from ..ops import dp_affine, dp_engine, dp_ref
+from ..scoring.base import DPCosts
+from ..utils.params import AlignT
 from ..utils.torchenv import device_from_env
 
-FWD = _ref.FWD
-REV = _ref.REV
+FWD = "fwd"
+REV = "rev"
 BACKENDS = ("torch", "numpy", "auto")
 AUTO_MIN_SIZE = 40   # the reference's _AUTO_MIN_SIZE
 
@@ -73,9 +72,59 @@ def build(c, q0: int, q1: int, t0: int, t1: int, direction: str = FWD,
                                    device=device)
 
 
-class DPMatrix(_ref.DPMatrix):
-    """``core.dp.DPMatrix`` whose device builds run on K7."""
+class DPMatrix:
+    def __init__(self, query_seq, templ_seq, evaluator, direction: str = FWD,
+                 align_type: AlignT = AlignT.GLOBAL,
+                 sub_bounds: tuple[int, int, int, int] | None = None,
+                 bug_compat: bool = True) -> None:
+        self.query_seq = query_seq
+        self.templ_seq = templ_seq
+        self.evaluator = evaluator
+        self.direction = direction
+        self.align_type = AlignT(align_type)
+        self.islocal = self.align_type == AlignT.LOCAL
+        self.sub_bounds = sub_bounds  # (q1_end, t1_end, q2_beg, t2_beg)
+        self.bug_compat = bug_compat
+        self.costs: DPCosts | None = None
+        self.res: dp_ref.DPResult | None = None
+        self._build()
 
+    # --- reference-compatible accessors -----------------------------------
+    def get_query_size(self) -> int:
+        return self.query_seq.size()
+
+    def get_template_size(self) -> int:
+        return self.templ_seq.size()
+
+    def get_cell(self, i: int, j: int) -> tuple[float, int, int]:
+        """(score, prev_query_idx, prev_template_idx)."""
+        return (float(self.res.H[i, j]), int(self.res.PQ[i, j]),
+                int(self.res.PT[i, j]))
+
+    def score(self, i: int, j: int) -> float:
+        return float(self.res.H[i, j])
+
+    def prev(self, i: int, j: int) -> tuple[int, int]:
+        return int(self.res.PQ[i, j]), int(self.res.PT[i, j])
+
+    def get_sim(self, i: int, j: int) -> float:
+        return float(self.costs.S[i, j])
+
+    def deletion(self, q1: int, q2: int, t1: int, t2: int) -> float:
+        return self.costs.deletion(q1, q2, t1, t2)
+
+    def insertion(self, q1: int, q2: int, t1: int, t2: int) -> float:
+        return self.costs.insertion(q1, q2, t1, t2)
+
+    def set_evaluator(self, evaluator, direction: str) -> None:
+        self.evaluator = evaluator
+        self.direction = direction
+        self.reevaluate()
+
+    def reevaluate(self) -> None:
+        self._build()
+
+    # ----------------------------------------------------------------------
     def _build(self) -> None:
         self.costs = self.evaluator.build_costs(self.query_seq,
                                                 self.templ_seq)
@@ -96,3 +145,16 @@ class DPMatrix(_ref.DPMatrix):
                   else None)
         self.res = build(c, q0, q1, t0, t1, self.direction, self.islocal,
                          self.bug_compat, device=device)
+
+    def dump_matrix(self) -> str:
+        """operator<< on DPMatrix (dpmatrix.h:116-129): tab-separated scores."""
+        lines = []
+        for i in range(self.get_query_size()):
+            lines.append("\t".join(_fmt_g6(v) for v in self.res.H[i]) + "\t")
+        return "\n".join(lines) + "\n"
+
+
+def _fmt_g6(v: float) -> str:
+    """C++ ostream default formatting (6 significant digits, %g-style)."""
+    s = f"{float(v):.6g}"
+    return s

@@ -1,5 +1,6 @@
-"""Build and load the port's CUDA kernels (counterpart of
-``alignment_algos_tpu/native/__init__.py::build_native``).
+"""Build and load the port's CUDA kernels (the CUDA counterpart of
+``native.build_native``, which builds the host C/C++ engines into the same
+``build/``).
 
 ``ops/csrc/*.cu`` compile at first use with ``nvcc``, one process per
 source started together, and link into one shared library with a plain C
@@ -36,6 +37,7 @@ _F = ctypes.c_float
 # argtypes of every C entry point in csrc/ (pointers and the stream as
 # c_void_p: a bare Python int would be cut to 32 bits)
 SIGNATURES = {
+    "sw_rows_per_warp": (),
     "sw_scores_launch": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
     "sw_tb_launch": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                      _P),

@@ -31,11 +31,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from alignment_algos_tpu.ops import dp_ref
-from alignment_algos_tpu.ops.dp_ref import NULL, DPResult
-from alignment_algos_tpu.scoring.base import DPCosts
-
-from . import _build
+from ..scoring.base import DPCosts
+from . import _build, dp_ref
+from .dp_ref import NULL, DPResult
 from .dp_pallas import _bucket_shape, _host_tables
 from .dp_scores import NEG
 

@@ -15,9 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from alignment_algos_tpu.ops import dp_ref
-from alignment_algos_tpu.ops.dp_ref import NULL, DPResult
-
+from . import dp_ref
+from .dp_ref import NULL, DPResult
 from .dp_scores import dp_general
 
 __all__ = ["forward_h_batched", "forward_h_reference", "forward_result",

@@ -230,8 +230,7 @@ def forward_scores_batch(costs: list, local: bool = False, *,
     Only the per-pair data crosses to ``device`` (S, the two gap vectors or
     D, and the A/B/C insertion coefficients); the tables are built there
     (:func:`prepare_tables`) and K3 runs on them."""
-    from alignment_algos_tpu.scoring.base import _DEL_FREE_OVERHANG_MODES
-
+    from ..scoring.base import _DEL_FREE_OVERHANG_MODES
     from . import dp_pallas
 
     q2, t2 = dp_pallas._bucket_shape(costs)

@@ -31,12 +31,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from alignment_algos_tpu.scoring.base import (_DEL_FREE_OVERHANG_MODES,
-                                              ins_zero_flags)
-from alignment_algos_tpu.scoring.hmap_eval import HMAPaliEval
-from alignment_algos_tpu.utils.hmath import seq_sum_f32
-from alignment_algos_tpu.utils.params import AlignT, HMAPaliParams
-
+from ..scoring.base import _DEL_FREE_OVERHANG_MODES, ins_zero_flags
+from ..scoring.hmap_eval import HMAPaliEval
+from ..utils.hmath import seq_sum_f32
+from ..utils.params import AlignT, HMAPaliParams
 from . import _build, dp_scores
 from .expf import expf_plain
 

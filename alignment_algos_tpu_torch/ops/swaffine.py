@@ -226,15 +226,19 @@ def _check_inputs(q_codes, t_codes, table, gap):
 def _launch(entry: str, q_codes, t_codes, table, gap, nt, b, *outs):
     lib = _build.load().lib
     dev = t_codes.device
-    hrow = torch.empty((nt, b), dtype=torch.float32, device=dev)
-    frow = torch.empty((nt, b), dtype=torch.float32, device=dev)
+    nq = q_codes.shape[0]
+    # the boundary row between query chunks: (B, T) H and F, only when one
+    # warp's stripes do not cover the query
+    shape = (b, nt) if nq > lib.sw_rows_per_warp() else (1,)
+    bnd_h = torch.empty(shape, dtype=torch.float32, device=dev)
+    bnd_f = torch.empty(shape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, entry)(
             q_codes.data_ptr(), int(q_codes.dim() == 2), t_codes.data_ptr(),
             table.data_ptr(), table.shape[0], gap.data_ptr(),
-            hrow.data_ptr(), frow.data_ptr(), *(o.data_ptr() for o in outs),
-            q_codes.shape[0], nt, b, stream)
+            bnd_h.data_ptr(), bnd_f.data_ptr(),
+            *(o.data_ptr() for o in outs), nq, nt, b, stream)
     _build.check(err, entry)
 
 

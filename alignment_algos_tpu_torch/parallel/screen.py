@@ -79,10 +79,9 @@ def screen_profiles(query, templates, evaluator_factory, k: int = 10, *,
     evaluator_factory(query, templ) -> evaluator with build_costs().
     Returns (scores float32 (N,), top-k indices, score descending then index
     ascending)."""
-    from alignment_algos_tpu.scoring.hmap2_eval import Hmap2Eval
-    from alignment_algos_tpu.scoring.hmap_eval import HMAPaliEval
-
     from ..ops import dp_scores, hmap_device
+    from ..scoring.hmap2_eval import Hmap2Eval
+    from ..scoring.hmap_eval import HMAPaliEval
 
     device = torch.device(device)
     if templates:

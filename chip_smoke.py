@@ -8,9 +8,12 @@
    and prints the build time and ptxas's register/shared-memory/spill lines.
 3. Holds each kernel against its plain PyTorch version on the card with
    ``torch.equal`` (tolerance 0): small odd shapes, K1 at 512 x 5120 lanes,
-   K2 at 512 x 512 x 10, at gaps 4.73/0.34 and 11/1; K1 also against the
-   numpy Gotoh oracle on 2 lanes, and ``screen_library``'s top-k through K1
-   against ``screen_library_host`` (plain version on the card, ranked by
+   K2 at 512 x 512 x 10, at gaps 4.73/0.34 and 11/1; K1 and K2 at the edges
+   of their row stripes and query chunks (Q = 1, 511, 513 and 1031, odd T,
+   B = 1, 33 and 5120, one query per lane and one shared, pad-walled
+   lanes); K1 also against the numpy Gotoh oracle on 2 lanes (one query
+   chunk and three), and ``screen_library``'s top-k through K1 against
+   ``screen_library_host`` (plain version on the card, ranked by
    ``np.lexsort``).
 4. Drives the FASTA main path, ``aat_screen`` (the port's
    ``cli/screen.py``), at a deployment's size: one 512-residue query
@@ -23,7 +26,7 @@
    (c) equals (a), both kernels launched in every run, and JAX never
    imported.
 5. The exact profile path.  Fails unless the host libm ``expf`` loaded
-   (the shared host code would silently use ``np.exp``).  Generates one
+   (the port's ``native`` raises without it).  Generates one
    256-residue query profile and 1024 template profiles of 128-384
    residues from the seed, 8 of them planted homologs (the query's residues
    20-236 with 30% of their rows redrawn, between random flanks).  Holds
@@ -58,8 +61,12 @@
    libraries outside the timed runs.  Each run's wall is split
    into its DP builds (cost model, engine) and the rest (enumeration,
    output).
-7. Prints the kernels' JSON line, the card line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+7. Checks that no module of the JAX package (``alignment_algos_tpu``) nor
+   ``jax`` was loaded, then prints the kernels' JSON line (each kernel's
+   launches on its path, error, time, plain time, and its bound: the larger
+   of its bytes over the card's memory rate and its operations over the
+   card's rate for their type, at the SM clock ``nvidia-smi`` reports), the
+   card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the run with a non-zero exit code.
 """
@@ -67,6 +74,7 @@ Any failed phase ends the run with a non-zero exit code.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -96,10 +104,41 @@ NA_Q, NA_T, NA_CORE, NA_LEFT = 384, 402, (20, 364), 31
 GN2_PRODUCTION = ["--NUM_SUBOPT", "1000", "--DELTA_RATIO", "0.20",
                   "--MAX_OVERLAP", "0.05", "--FINAL_OVERLAP", "0.30",
                   "--ALIGN_MODE", "4"]
+# K1 and K2 stripe and chunk edges: (Q, T, B); a warp holds 32 x R query
+# rows (R = 16 from Q = 257 on), a longer query runs in chunks of 512
+SW_EDGES = [(1, 1, 1), (511, 45, 33), (513, 39, 33), (1031, 77, 33),
+            (40, 37, 5120)]
+# published H100 SXM rates: HBM bytes per second; float32 and float64
+# lanes per SM, each one operation per clock
+HBM_BYTES_PER_S = 3.35e12
+F32_LANES, F64_LANES = 128, 64
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+@functools.lru_cache(maxsize=None)
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[0].split()[0]) * 1e6
+
+
+def bound(nbytes: float, ops32: float, ops64: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the card's rate for their type
+    (float32 and float64 pipes run side by side)."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    hz = max_sm_clock_hz()
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(ops32 / (sms * F32_LANES * hz), ops64 / (sms * F64_LANES * hz))
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops_f32": ops32, "ops_f64": ops64,
+            "sm_clock_hz": hz, "sms": sms}
 
 
 def card_line() -> str:
@@ -204,6 +243,18 @@ def check_kernels(sw, q, t, table, pad, dev):
                 k1_vs_plain(*args)
             k2_vs_plain(*sw.to_device(qc, tc, table, gi, ge, dev))
         log(f"small odd shapes: K1 and K2 equal plain at gaps {gi}/{ge}")
+        for nq, nt, b in SW_EDGES:
+            qc = rng.integers(0, 20, (b, nq))
+            tc = rng.integers(0, 20, (b, nt))
+            if b >= 3:
+                tc[0] = pad
+                tc[1, nt // 2:] = pad
+            for qarg in (qc[0], qc):
+                args = sw.to_device(qarg, tc, table, gi, ge, dev)
+                k1_vs_plain(*args)
+                k2_vs_plain(*args)
+        log(f"stripe and chunk edges {SW_EDGES} (Q, T, B): K1 and K2 equal "
+            f"plain, shared query and one per lane, gaps {gi}/{ge}")
 
         qd, td, tab, gap = sw.to_device(q, t, table, gi, ge, dev)
         full = sw.sw_affine_scores(qd, td, tab, gap)
@@ -225,15 +276,19 @@ def check_kernels(sw, q, t, table, pad, dev):
         log(f"K2 equals plain at {Q_LEN} x {t.shape[1]} x {TOP_K}, "
             f"gaps {gi}/{ge}")
 
-        # the numpy oracle, in float32 throughout, on 2 lanes
+        # the numpy oracle, in float32 throughout, on 2 lanes: the main
+        # path's, and three query chunks (1031 rows)
         lanes = [0, int(np.argmax((t != pad).sum(axis=1)))]
-        s = table[q[None, :, None], t[lanes][:, None, :]]
-        want = sw.sw_affine_reference(s, np.float32(gi), np.float32(ge))
-        got = sw.sw_affine_scores(qd, td[:, lanes].contiguous(), tab, gap)
-        np.testing.assert_array_equal(got.cpu().numpy(), want)
-        err["k1"] = max(err["k1"], float(np.abs(got.cpu().numpy()
-                                                - want).max()))
-        log(f"K1 equals the numpy oracle on lanes {lanes}, gaps {gi}/{ge}")
+        long_q = rng.integers(0, 20, 1031)
+        for qq, tt in ((q, t[lanes]), (long_q, t[lanes, :61])):
+            s = table[qq[None, :, None], tt[:, None, :]]
+            want = sw.sw_affine_reference(s, np.float32(gi), np.float32(ge))
+            got = sw.sw_affine_scores(
+                *sw.to_device(qq, tt, table, gi, ge, dev)).cpu().numpy()
+            np.testing.assert_array_equal(got, want)
+            err["k1"] = max(err["k1"], float(np.abs(got - want).max()))
+        log(f"K1 equals the numpy oracle on lanes {lanes} at "
+            f"{Q_LEN} x {T_MAX} and 1031 x 61, gaps {gi}/{ge}")
 
     # times at the main path's shapes, default gaps
     gi, ge = GAPS[0]
@@ -498,7 +553,8 @@ def check_profile_kernels(dev, qfn, lib_dir, homologs, cli):
     return ({"k3": (err["k3"], k3_ms, k3_plain_ms),
              "k5": (err["k5"], k5_ms, k5_plain_ms),
              "k6": (err["k6"], k6_ms, k6_plain_ms)},
-            {"bucket": shape, "k3_64x258x258_ms": k3_64_ms,
+            {"bucket": shape, "dims": (len(b["idx"]), query.size(), near),
+             "k3_64x258x258_ms": k3_64_ms,
              "k3_64x258x258_plain_ms": k3_64_plain_ms})
 
 
@@ -714,6 +770,7 @@ def check_k7(dev, d, na_files, card):
         log(f"K7 {times[-1][0]:.3f} ms vs plain {times[-1][1]:.3f} ms at one "
             f"{q2} x {t2} pair on {card}")
     extra = {"shape": f"1x{na.q_size}x{na.t_size}",
+             "dims": (1, na.q_size, na.t_size),
              "ms_1x182x224": times[1][0], "plain_ms_1x182x224": times[1][1]}
     return (err, *times[0]), extra
 
@@ -857,7 +914,7 @@ def main() -> int:
     # the profile path's host code (gap vectors, the plain expf) must call
     # glibc's expf; without its library the shared code uses np.exp
     assert expf.host_libm_loaded(), "host libm expf library did not load"
-    log("host libm expf loaded (alignment_algos_tpu.native)")
+    log("host libm expf loaded (alignment_algos_tpu_torch.native)")
 
     blosum = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "tests", "data", "BLOSUM62")
@@ -935,44 +992,81 @@ def main() -> int:
             f"{k7_build_s:.3f} s on {card}")
         launches["k7"], dp_runs = run_dp_paths(d, na_files, card)
     assert "jax" not in sys.modules, "the port imported jax"
+    ref = sorted(m for m in sys.modules if m == "alignment_algos_tpu"
+                 or m.startswith("alignment_algos_tpu."))
+    assert not ref, f"the port loaded the JAX package: {ref}"
+    log("no module of jax or of the JAX package (alignment_algos_tpu) was "
+        "loaded")
 
     for k, (e, ms, pms) in timing.items():
         log(f"{k}: kernel {ms:.3f} ms, plain {pms:.3f} ms, max_abs_err {e} "
             f"on {card}")
+    # each kernel's bound at the shape it was timed at; no single PyTorch
+    # call computes any of these functions (dependent DP recurrences and a
+    # serial chain the parity contract fixes), so library_ms is null
+    a = table.shape[0]
+    cells = Q_LEN * T_MAX * N_LIB
+    k1_bound = bound(4 * (Q_LEN + T_MAX * N_LIB + a * a + 2 + N_LIB),
+                     11 * cells)
+    cells = Q_LEN * T_MAX * TOP_K
+    k2_bound = bound(4 * (Q_LEN * TOP_K + T_MAX * TOP_K + a * a + 2)
+                     + (Q_LEN + T_MAX - 1) * Q_LEN * TOP_K
+                     + 8 * Q_LEN * TOP_K, 16 * cells)
+    n, q2, t2 = prof_extra["dims"]
+    ia, ib = q2 - 3, t2 - 3                  # interior rows and columns
+    cand = n * ia * ib * (ia + ib - 2) / 2   # gap candidates, both kinds
+    k3_bound = bound(4 * n * (2 * q2 * t2 + t2 * t2 + 2 * q2 + t2 + 1),
+                     2 * cand + 6 * n * ia * ib)
+    inner = n * (q2 - 2) * (t2 - 2)
+    ka, ks = 20, 3                           # profile and SSE widths
+    k5_bound = bound(4 * ((q2 + n * t2) * (ka + ks + 1) + n * q2 * t2),
+                     (2 * ka + 2 * ks + 5) * inner, 10 * inner)
+    k6_bound = bound(4 * (2 * n * q2 * t2 + 2 * n), 6 * inner)
+    n, q2, t2 = k7_extra["dims"]
+    ia, ib = q2 - 3, t2 - 3
+    cand = n * ia * ib * (ia + ib - 2) / 2
+    k7_bound = bound(4 * n * (2 * q2 * t2 + t2 * t2 + 2 * q2)
+                     + 12 * n * q2 * t2, 3 * cand + 4 * n * ia * ib)
+    bounds = {"k1": k1_bound, "k2": k2_bound, "k3": k3_bound,
+              "k5": k5_bound, "k6": k6_bound, "k7": k7_bound}
+    for k, bd in bounds.items():
+        log(f"{k}: bound {bd['bound_ms']:.6f} ms by {bd['bound_by']} "
+            f"({bd['bytes']:.4g} bytes, {bd['ops_f32']:.4g} float32 and "
+            f"{bd['ops_f64']:.4g} float64 operations, {bd['sms']} SMs at "
+            f"{bd['sm_clock_hz'] / 1e6:.0f} MHz)")
+
+    def row(k):
+        bd = bounds[k]
+        return {"launches": launches[k], "max_abs_err": timing[k][0],
+                "ms": timing[k][1], "plain_ms": timing[k][2],
+                "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+                "library_ms": None}
+
     kernels = [
         {"name": "sw_scores_kernel (K1)", "route": "cuda", "source": K1_SRC,
          "replaces": "alignment_algos_tpu/ops/swscan.py:66",
          "also_replaces": ["alignment_algos_tpu/ops/swstrip.py:49",
                            "alignment_algos_tpu/ops/swaffine.py:56"],
-         "launches": launches["k1"], "max_abs_err": timing["k1"][0],
-         "ms": timing["k1"][1], "plain_ms": timing["k1"][2]},
+         **row("k1"), "shape": f"{Q_LEN}x{T_MAX}x{N_LIB}"},
         {"name": "sw_tb_kernel (K2)", "route": "cuda", "source": K2_SRC,
          "replaces": "alignment_algos_tpu/ops/swaffine.py:178",
-         "launches": launches["k2"], "max_abs_err": timing["k2"][0],
-         "ms": timing["k2"][1], "plain_ms": timing["k2"][2]},
+         **row("k2"), "shape": f"{Q_LEN}x{T_MAX}x{TOP_K}"},
         {"name": "dp_general_kernel (K3)", "route": "cuda", "source": K3_SRC,
          "replaces": "alignment_algos_tpu/ops/dp_scores.py:62",
          "also_replaces": ["alignment_algos_tpu/ops/dp_pallas.py:67"],
-         "launches": launches["k3"], "max_abs_err": timing["k3"][0],
-         "ms": timing["k3"][1], "plain_ms": timing["k3"][2],
-         "shape": prof_extra["bucket"],
+         **row("k3"), "shape": prof_extra["bucket"],
          "ms_64x258x258": prof_extra["k3_64x258x258_ms"],
          "plain_ms_64x258x258": prof_extra["k3_64x258x258_plain_ms"]},
         {"name": "hmap_sim_kernel (K5)", "route": "cuda", "source": K56_SRC,
          "replaces": "alignment_algos_tpu/ops/hmap_device.py:137",
-         "launches": launches["k5"], "max_abs_err": timing["k5"][0],
-         "ms": timing["k5"][1], "plain_ms": timing["k5"][2],
-         "shape": prof_extra["bucket"]},
+         **row("k5"), "shape": prof_extra["bucket"]},
         {"name": "hmap_znorm_kernel (K6)", "route": "cuda", "source": K56_SRC,
          "replaces": "alignment_algos_tpu/ops/hmap_device.py:172",
-         "launches": launches["k6"], "max_abs_err": timing["k6"][0],
-         "ms": timing["k6"][1], "plain_ms": timing["k6"][2],
-         "shape": prof_extra["bucket"]},
+         **row("k6"), "shape": prof_extra["bucket"]},
         {"name": "dp_tb_kernel (K7)", "route": "cuda", "source": K7_SRC,
          "replaces": "alignment_algos_tpu/ops/dp_engine.py:37",
          "also_replaces": ["alignment_algos_tpu/ops/dp_engine.py:210"],
-         "launches": launches["k7"], "max_abs_err": timing["k7"][0],
-         "ms": timing["k7"][1], "plain_ms": timing["k7"][2], **k7_extra},
+         **row("k7"), **k7_extra},
     ]
     log(json.dumps({"profiles_run": prof_run}))
     log(json.dumps({"dp_runs": dp_runs, "nalign_build_split_s": {

@@ -4,8 +4,8 @@ agrees with the numpy Gotoh oracle; K3 (general-gap DP, both modes), K5
 (HMAP similarity) and K6 (z-norm) equal their plain versions, K3 equals the
 numpy ``dp_ref`` engine and K5 + K6 equal the host ``build_costs`` S.
 
-Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports no JAX, so it runs
-where JAX is not installed:
+Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports only the port (no
+JAX, nothing of the JAX package), so it runs where JAX is not installed:
 
     AAT_TORCH_DEVICE=cuda python -m pytest --noconftest -m cuda \
         tests/test_torch_cuda.py
@@ -19,9 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+from alignment_algos_tpu_torch import native
 from alignment_algos_tpu_torch.ops import (dp_pallas, dp_scores, expf,
                                            hmap_device)
 from alignment_algos_tpu_torch.ops import swaffine
+from alignment_algos_tpu_torch.scoring.base import (DPCosts,
+                                                    affine_deletion_table)
+from alignment_algos_tpu_torch.utils.params import AlignT
 
 pytestmark = pytest.mark.cuda
 
@@ -93,6 +97,69 @@ def test_k1_matches_numpy_oracle(cuda, gi, ge):
     np.testing.assert_array_equal(got, want)
 
 
+# K1 and K2 give each thread R query rows (R = 1, 2, 4, 8, 16 by Q) and a
+# warp 32*R rows; a longer query runs in chunks of 512.  Shapes at those
+# edges: Q = 1, one row past a power of two, 32*R - 1 and 32*R + 1 at R = 16,
+# 2*32*R + 7 (three chunks), odd T, B = 1, 33 and 5120.
+EDGE_SHAPES = [(1, 1, 1), (32, 7, 1), (33, 9, 3), (257, 17, 2),
+               (511, 45, 33), (513, 39, 33), (1031, 77, 33), (40, 37, 5120)]
+
+
+def _edge_inputs(q, t, b, seed, shared_query):
+    """Random codes; with 3 or more lanes an all-wall lane and a lane
+    walled from T/2, as a pad-walled library."""
+    rng = np.random.default_rng(seed)
+    qc = rng.integers(0, 20, q if shared_query else (b, q))
+    tc = rng.integers(0, 20, (b, t))
+    if b >= 3:
+        tc[0] = PAD
+        tc[1, t // 2:] = PAD
+    table = np.full((21, 21), -1.0e4, np.float32)
+    table[:20, :20] = rng.integers(-4, 12, (20, 20))
+    return qc, tc, table
+
+
+@pytest.mark.parametrize("gi,ge", GAPS)
+@pytest.mark.parametrize("q,t,b", EDGE_SHAPES)
+@pytest.mark.parametrize("shared_query", [True, False],
+                         ids=["shared", "q_lane"])
+def test_k1_stripe_edges_equal_plain(cuda, q, t, b, gi, ge, shared_query):
+    qc, tc, table = _edge_inputs(q, t, b, q * 7 + t + b, shared_query)
+    qd, td, tab, gap = swaffine.to_device(qc, tc, table, gi, ge, cuda)
+    got = swaffine.sw_affine_scores(qd, td, tab, gap)
+    torch.cuda.synchronize()
+    want = swaffine.sw_affine_scores_plain(
+        swaffine.skewed_similarity(qd, td, tab), gap, q=q, t=t)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("gi,ge", GAPS)
+@pytest.mark.parametrize("q,t,b", EDGE_SHAPES)
+@pytest.mark.parametrize("shared_query", [True, False],
+                         ids=["shared", "q_lane"])
+def test_k2_stripe_edges_equal_plain(cuda, q, t, b, gi, ge, shared_query):
+    qc, tc, table = _edge_inputs(q, t, b, q + 5 * t + b, shared_query)
+    qd, td, tab, gap = swaffine.to_device(qc, tc, table, gi, ge, cuda)
+    got = swaffine.sw_affine_tb(qd, td, tab, gap)
+    torch.cuda.synchronize()
+    want = swaffine.sw_affine_tb_plain(
+        swaffine.skewed_similarity(qd, td, tab), gap, q=q, t=t)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("gi,ge", GAPS)
+def test_k1_chunked_matches_numpy_oracle(cuda, gi, ge):
+    """Three query chunks (1031 rows) on 2 lanes, against the oracle."""
+    q, t, b = 1031, 61, 2
+    qc, tc, table = _edge_inputs(q, t, b, 9, True)
+    qd, td, tab, gap = swaffine.to_device(qc, tc, table, gi, ge, cuda)
+    got = swaffine.sw_affine_scores(qd, td, tab, gap).cpu().numpy()
+    s = table[qc[None, :, None], tc[:, None, :]]
+    want = swaffine.sw_affine_reference(s, np.float32(gi), np.float32(ge))
+    np.testing.assert_array_equal(got, want)
+
+
 def test_wrapper_counts_launches_and_rejects_bad_input(cuda):
     qc, tc, table = _inputs(8, 9, 3, 0, True)
     qd, td, tab, gap = swaffine.to_device(qc, tc, table, 11.0, 1.0, cuda)
@@ -111,6 +178,21 @@ def test_wrapper_counts_launches_and_rejects_bad_input(cuda):
 
 # ------------------------------------------------- K3, K5, K6 (exact DP path)
 
+def random_costs(rng, q2, t2, align_type=AlignT.GLOBAL, zero_flags=False):
+    """tests/util.py's random cost model, as the port's ``DPCosts``."""
+    S = rng.standard_normal((q2, t2)).astype(np.float32) * np.float32(2.0)
+    S[[0, -1], :] = 0
+    S[:, [0, -1]] = 0
+    gi = rng.uniform(0.5, 5.0, t2).astype(np.float32)
+    ge = rng.uniform(0.05, 1.0, t2).astype(np.float32)
+    D = affine_deletion_table(np.minimum.outer(gi, gi).astype(np.float32),
+                              np.minimum.outer(ge, ge).astype(np.float32),
+                              align_type)
+    return DPCosts(S=S, D=D, A=np.minimum(gi, np.roll(gi, 1)),
+                   B=np.minimum(ge, np.roll(ge, 1)),
+                   ins_zero_head_q=zero_flags, ins_zero_tail_q=zero_flags)
+
+
 def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Tolerance 0: equal values and NaN at the same places."""
     na, nb = torch.isnan(a), torch.isnan(b)
@@ -122,7 +204,6 @@ def _dp_tables(rng, n, q2, t2, dev, *, vec_d, with_c, align, zero):
     """K3 inputs from random per-pair data: S with zero borders, gap
     vectors (vec_d: rebuilt into D on the device) or a full random D, A/B
     (and C) insertion coefficients."""
-    from alignment_algos_tpu.utils.params import AlignT
     S = (rng.standard_normal((n, q2, t2)) * 2.0).astype(np.float32)
     S[:, [0, -1], :] = 0.0
     S[:, :, [0, -1]] = 0.0
@@ -153,7 +234,6 @@ K3_SHAPES = [(1, 3, 3), (3, 9, 7), (9, 13, 21), (1, 40, 33), (4, 258, 386),
 @pytest.mark.parametrize("vec_d", [True, False], ids=["vec_d", "full_d"])
 @pytest.mark.parametrize("n,q2,t2", K3_SHAPES)
 def test_k3_equals_plain(cuda, n, q2, t2, vec_d, local):
-    from alignment_algos_tpu.utils.params import AlignT
     rng = np.random.default_rng(n * 1000 + q2 + t2)
     tabs = _dp_tables(rng, n, q2, t2, cuda, vec_d=vec_d, with_c=not vec_d,
                       align=AlignT.SEMI_LOCAL, zero=vec_d)
@@ -166,9 +246,6 @@ def test_k3_equals_plain(cuda, n, q2, t2, vec_d, local):
 
 @pytest.mark.parametrize("local", [False, True])
 def test_k3_matches_dp_ref(cuda, local):
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from util import random_costs
-    from alignment_algos_tpu.utils.params import AlignT
     rng = np.random.default_rng(11)
     costs = [random_costs(rng, 40, 29, AlignT.GLOBAL_LOCAL, True)
              for _ in range(2)]
@@ -183,7 +260,7 @@ def _profiles(rng, lengths):
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, os.path.join(root, "tools"))
     from make_profiles import make_profile
-    from alignment_algos_tpu.seq.hmap import HMAPSequence
+    from alignment_algos_tpu_torch.seq.hmap import HMAPSequence
     return [HMAPSequence.from_stream(io.StringIO(
         make_profile(rng, f"s{i}", n))) for i, n in enumerate(lengths)]
 
@@ -191,8 +268,8 @@ def _profiles(rng, lengths):
 @pytest.mark.parametrize("normalize", [True, False])
 @pytest.mark.parametrize("q_len,t_len,n", [(30, 61, 3), (256, 300, 4)])
 def test_k5_k6_equal_plain_and_host(cuda, q_len, t_len, n, normalize):
-    from alignment_algos_tpu.scoring.hmap_eval import HMAPaliEval
-    from alignment_algos_tpu.utils.params import HMAPaliParams
+    from alignment_algos_tpu_torch.scoring.hmap_eval import HMAPaliEval
+    from alignment_algos_tpu_torch.utils.params import HMAPaliParams
     assert expf.host_libm_loaded(), "host libm expf not loaded"
     rng = np.random.default_rng(q_len + n)
     params = HMAPaliParams()
@@ -221,7 +298,6 @@ def test_k5_k6_equal_plain_and_host(cuda, q_len, t_len, n, normalize):
 
 
 def test_new_wrappers_count_launches_and_reject_bad_input(cuda):
-    from alignment_algos_tpu.utils.params import AlignT
     rng = np.random.default_rng(3)
     tabs = _dp_tables(rng, 2, 9, 8, cuda, vec_d=True, with_c=False,
                       align=AlignT.GLOBAL, zero=False)
@@ -263,7 +339,6 @@ def test_k5_expf_replica_exhaustive(cuda):
     against host libm bit for bit; the domain rule beyond.  With ka = ks =
     1, unit profiles and confidences and alpha = 1, the similarity of query
     row i is 1 * expf(((1 * (x_i * 1) / 1) * 1) * 1) = expf(x_i) exactly."""
-    from alignment_algos_tpu import native
     assert expf.host_libm_loaded(), "host libm expf not loaded"
     top = int(np.float32(87.0).view(np.int32))        # bits of 87.0
     chunk = 1 << 26
@@ -309,10 +384,6 @@ def _k7_costs(rng, q2, t2, kind):
     zero flags), ``gn2`` (full random D, a C term, distance offset 1),
     ``ties`` (integer S and costs) or ``big`` (S near 1e8, where an ulp
     exceeds the cost differences)."""
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from util import random_costs
-    from alignment_algos_tpu.scoring.base import DPCosts
-    from alignment_algos_tpu.utils.params import AlignT
     c = random_costs(rng, q2, t2, AlignT.SEMI_LOCAL, kind == "affine")
     if kind == "gn2":
         D = rng.uniform(0.0, 9.0, (t2, t2)).astype(np.float32)
@@ -358,8 +429,7 @@ def test_k7_equals_plain(cuda, n, q2, t2, bounds, local, kind):
 def test_k7_matches_dp_ref(cuda, local):
     """Two pairs against the numpy/native engine, forward and reverse
     (bug_compat on and off), plus the batched build."""
-    from alignment_algos_tpu.ops import dp_ref
-    from alignment_algos_tpu_torch.ops import dp_engine
+    from alignment_algos_tpu_torch.ops import dp_engine, dp_ref
     rng = np.random.default_rng(12)
     costs = [_k7_costs(rng, 60, 47, kind) for kind in ("affine", "gn2")]
     costs[1].S[20, 1] += np.float32(200.0)   # a reverse insertion winner

@@ -3,7 +3,10 @@ through ``ops/dp_engine``) against the JAX package's ``dp_engine`` (the XLA
 scan on the CPU) and the numpy ``dp_ref`` engine, on the same cost models.
 Tolerance 0 everywhere: H, PQ and PT are compared with
 ``np.testing.assert_array_equal``.  Shapes stay at 16 or fewer so that the
-XLA compiles stay cheap."""
+XLA compiles stay cheap.  The port gets each cost model as its own
+``DPCosts`` over the same arrays (:func:`port_costs`)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -14,10 +17,21 @@ from alignment_algos_tpu.ops import dp_ref
 from alignment_algos_tpu.scoring.base import DPCosts
 from alignment_algos_tpu.utils.params import AlignT
 from alignment_algos_tpu_torch.ops import dp_engine
+from alignment_algos_tpu_torch.scoring import base as tbase
+from alignment_algos_tpu_torch.utils import params as tparams
 
 from util import random_costs
 
 CPU = torch.device("cpu")
+
+
+def port_costs(c):
+    """The JAX package's cost model ``c`` as the port's ``DPCosts`` over
+    the same arrays."""
+    kw = {f.name: getattr(c, f.name) for f in dataclasses.fields(c)}
+    if kw["del_align"] is not None:
+        kw["del_align"] = tparams.AlignT(kw["del_align"])
+    return tbase.DPCosts(**kw)
 
 # tests/test_dp_engine.py's CASES: (q2, t2, align_type, zero_flags, local)
 CASES = [
@@ -37,7 +51,8 @@ def assert_same(*results):
 
 
 def check_forward(c, q0, q1, t0, t1, local):
-    got = dp_engine.build_forward(c, q0, q1, t0, t1, local, device=CPU)
+    got = dp_engine.build_forward(port_costs(c), q0, q1, t0, t1, local,
+                                  device=CPU)
     assert got.H.dtype == np.float32 and got.PQ.dtype == np.int32
     assert_same(got, jde.build_forward_jax(c, q0, q1, t0, t1, local=local),
                 dp_ref.build_forward(c, q0, q1, t0, t1, local=local))
@@ -68,8 +83,8 @@ def test_reverse_matches_jax_and_dp_ref(bug_compat):
     an insertion win there."""
     c = random_costs(np.random.default_rng(5), 10, 10, AlignT.GLOBAL, False)
     c.S[5, 1] += np.float32(200.0)
-    got = dp_engine.build_reverse(c, 0, 9, 0, 9, False, bug_compat,
-                                  device=CPU)
+    got = dp_engine.build_reverse(port_costs(c), 0, 9, 0, 9, False,
+                                  bug_compat, device=CPU)
     assert_same(got, jde.build_reverse_jax(c, 0, 9, 0, 9,
                                            bug_compat=bug_compat),
                 dp_ref.build_reverse(c, 0, 9, 0, 9, bug_compat=bug_compat))
@@ -81,8 +96,8 @@ def test_reverse_matches_jax_and_dp_ref(bug_compat):
 def test_reverse_cases(q2, t2, atype, zf, local):
     rng = np.random.default_rng(q2 * 7 + t2)
     c = random_costs(rng, q2, t2, atype, zf)
-    got = dp_engine.build_reverse(c, 0, q2 - 1, 0, t2 - 1, local,
-                                  device=CPU)
+    got = dp_engine.build_reverse(port_costs(c), 0, q2 - 1, 0, t2 - 1,
+                                  local, device=CPU)
     assert_same(got, jde.build_reverse_jax(c, 0, q2 - 1, 0, t2 - 1,
                                            local=local),
                 dp_ref.build_reverse(c, 0, q2 - 1, 0, t2 - 1, local=local))
@@ -92,7 +107,8 @@ def test_batched_matches_jax():
     rng = np.random.default_rng(9)
     costs = [random_costs(rng, 12, 11, AlignT.SEMI_LOCAL, True)
              for _ in range(3)]
-    got = dp_engine.build_forward_batched(costs, device=CPU)
+    got = dp_engine.build_forward_batched([port_costs(c) for c in costs],
+                                          device=CPU)
     want = jde.build_forward_jax_batched(costs)
     assert len(got) == 3
     for g, w, c in zip(got, want, costs):
@@ -164,6 +180,7 @@ def test_wrapper_routes_cpu_tensors_and_rejects_bad_input():
     """On CPU tensors K7's wrapper is its plain version (no launch); it
     rejects what the kernel does not take."""
     c = random_costs(np.random.default_rng(3), 9, 11, AlignT.GLOBAL, True)
+    c = port_costs(c)
     tabs = dp_engine.device_tables([c], 0, 8, 0, 10, device=CPU)
     b = dict(q0=0, q1=8, t0=0, t1=10)
     n = dp_engine.dp_forward_tb.launches
@@ -184,13 +201,14 @@ def test_wrapper_routes_cpu_tensors_and_rejects_bad_input():
             dp_engine.dp_forward_tb(*tabs, **bad)
     with pytest.raises(ValueError):
         dp_engine.build_forward_batched(
-            [c, random_costs(np.random.default_rng(4), 9, 12)], device=CPU)
+            [c, port_costs(random_costs(np.random.default_rng(4), 9, 12))],
+            device=CPU)
 
 
 @pytest.mark.parametrize("bounds", [(2, 3, 1, 6), (1, 6, 2, 3)])
 def test_one_row_or_column_routes_to_dp_ref(bounds):
     q0, q1, t0, t1 = bounds
     c = random_costs(np.random.default_rng(1), 8, 8, AlignT.GLOBAL, False)
-    got = dp_engine.build_forward(c, q0, q1, t0, t1, device=CPU)
+    got = dp_engine.build_forward(port_costs(c), q0, q1, t0, t1, device=CPU)
     assert_same(got, dp_ref.build_forward(c, q0, q1, t0, t1))
     assert (got.PQ[q1, t1], got.PT[q1, t1]) == (q0, t0)

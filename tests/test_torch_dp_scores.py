@@ -3,7 +3,10 @@
 Pallas kernels in interpret mode (``dp_scores`` scores, ``dp_pallas`` full
 H) and the numpy ``dp_ref`` engine, on the same cost models.  Tolerance 0
 everywhere: scores and H matrices are compared with
-``np.testing.assert_array_equal``."""
+``np.testing.assert_array_equal``.  The port gets each cost model as its
+own ``DPCosts`` over the same arrays (:func:`port_costs`)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -15,10 +18,21 @@ from alignment_algos_tpu.ops import dp_scores as jds
 from alignment_algos_tpu.scoring.base import DPCosts, affine_deletion_table
 from alignment_algos_tpu.utils.params import AlignT
 from alignment_algos_tpu_torch.ops import dp_pallas, dp_scores
+from alignment_algos_tpu_torch.scoring import base as tbase
+from alignment_algos_tpu_torch.utils import params as tparams
 
 from util import random_costs
 
 CPU = torch.device("cpu")
+
+
+def port_costs(c):
+    """The JAX package's cost model ``c`` as the port's ``DPCosts`` over
+    the same arrays."""
+    kw = {f.name: getattr(c, f.name) for f in dataclasses.fields(c)}
+    if kw["del_align"] is not None:
+        kw["del_align"] = tparams.AlignT(kw["del_align"])
+    return tbase.DPCosts(**kw)
 
 
 def vec_costs(rng, q2, t2, align_type, zero_flags):
@@ -44,9 +58,10 @@ def check_all(costs, local=False):
     """Port scores and H against dp_ref, JAX dp_scores and dp_pallas
     (interpret mode)."""
     want = ref_h(costs, local)
-    H = dp_pallas.forward_h_batched(costs, local=local, device=CPU)
+    mine = [port_costs(c) for c in costs]
+    H = dp_pallas.forward_h_batched(mine, local=local, device=CPU)
     np.testing.assert_array_equal(H, want)
-    sc = dp_scores.forward_scores_batch(costs, local=local, device=CPU)
+    sc = dp_scores.forward_scores_batch(mine, local=local, device=CPU)
     assert sc.dtype == np.float32 and sc.shape == (len(costs),)
     np.testing.assert_array_equal(sc, want[:, -1, -1])
     np.testing.assert_array_equal(
@@ -104,32 +119,37 @@ def test_tiny_shapes_route_to_dp_ref(q2, t2):
     rng = np.random.default_rng(3)
     c = random_costs(rng, q2, t2, AlignT.GLOBAL, False)
     want = ref_h([c])
+    mine = [port_costs(c)]
     np.testing.assert_array_equal(
-        dp_pallas.forward_h_batched([c], device=CPU), want)
+        dp_pallas.forward_h_batched(mine, device=CPU), want)
     np.testing.assert_array_equal(
-        dp_scores.forward_scores_batch([c], device=CPU), want[:, -1, -1])
+        dp_scores.forward_scores_batch(mine, device=CPU), want[:, -1, -1])
     np.testing.assert_array_equal(
-        dp_scores.forward_scores_batch([c], device=CPU),
+        dp_scores.forward_scores_batch(mine, device=CPU),
         jds.forward_scores_batch([c], interpret=True))
 
 
 def test_hmap_cost_model_and_forward_result():
-    """HMAP profile-profile costs through the port's full-H path: H equal
-    to the reference DPMatrix build, traceback pointers left NULL."""
+    """HMAP profile-profile costs (the port's evaluator on the port's
+    profiles) through the port's full-H path: H equal to the reference
+    DPMatrix build on the same files, traceback pointers left NULL."""
     import os
 
     from alignment_algos_tpu.core.dp import DPMatrix
     from alignment_algos_tpu.scoring.hmap_eval import HMAPaliEval
     from alignment_algos_tpu.seq.hmap import HMAPSequence
     from alignment_algos_tpu.utils.params import HMAPaliParams
+    from alignment_algos_tpu_torch.scoring import hmap_eval as thmap_eval
+    from alignment_algos_tpu_torch.seq import hmap as thmap
 
     data = os.path.join(os.path.dirname(__file__), "golden", "inputs")
-    query = HMAPSequence.from_file(os.path.join(data, "qA.prof"))
-    templ = HMAPSequence.from_file(os.path.join(data, "tA.prof"))
+    files = [os.path.join(data, f) for f in ("qA.prof", "tA.prof")]
+    query, templ = (HMAPSequence.from_file(f) for f in files)
     params = HMAPaliParams()
-    c = HMAPaliEval(params).build_costs(query, templ)
     dpm = DPMatrix(query, templ, HMAPaliEval(params), "fwd",
                    params.align_type)
+    c = thmap_eval.HMAPaliEval(tparams.HMAPaliParams()).build_costs(
+        *(thmap.HMAPSequence.from_file(f) for f in files))
     res = dp_pallas.forward_result(c, device=CPU)
     np.testing.assert_array_equal(res.H, dpm.res.H)
     assert (res.PQ == dp_ref.NULL).all() and (res.PT == dp_ref.NULL).all()
@@ -141,8 +161,9 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
     """On CPU tensors K3's wrapper is its plain version (no launch), and
     it rejects what the kernel does not take."""
     rng = np.random.default_rng(5)
-    c = vec_costs(rng, 9, 11, AlignT.SEMI_LOCAL, True)
-    Cm, ins0, insc, dclose = jdp._host_tables(c, 0, 8, 0, 10)
+    ref = vec_costs(rng, 9, 11, AlignT.SEMI_LOCAL, True)
+    c = port_costs(ref)
+    Cm, ins0, insc, dclose = jdp._host_tables(ref, 0, 8, 0, 10)
     for a, b in zip(dp_pallas._host_tables(c, 0, 8, 0, 10),
                     (Cm, ins0, insc, dclose)):
         np.testing.assert_array_equal(a, b)
@@ -160,7 +181,7 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
         dp_scores.dp_general(tabs[0][:, :, :3].contiguous(), *tabs[1:])
     with pytest.raises(ValueError):
         dp_scores.dp_general(*tabs[:5], tabs[5].t())
-    other = vec_costs(rng, 9, 12, AlignT.SEMI_LOCAL, True)
+    other = port_costs(vec_costs(rng, 9, 12, AlignT.SEMI_LOCAL, True))
     for bad in ([], [c, other]):
         with pytest.raises(ValueError):
             dp_scores.forward_scores_batch(bad, device=CPU)

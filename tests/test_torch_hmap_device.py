@@ -3,7 +3,8 @@ screens against the JAX package and the host path, on the CPU.
 
 Tolerance 0: similarity matrices are compared bit for bit (as uint32),
 scores bit for bit and orders exactly, on the inputs of
-tests/test_hmap_device.py."""
+tests/test_hmap_device.py.  Each side parses the same profile text with its
+own package's classes."""
 
 from __future__ import annotations
 
@@ -25,6 +26,9 @@ from alignment_algos_tpu.utils.hmath import seq_sum_f32
 from alignment_algos_tpu.utils.params import HMAPaliParams
 from alignment_algos_tpu_torch.ops import expf, hmap_device
 from alignment_algos_tpu_torch.parallel.screen import screen_profiles
+from alignment_algos_tpu_torch.scoring import hmap_eval as thmap_eval
+from alignment_algos_tpu_torch.seq import hmap as thmap
+from alignment_algos_tpu_torch.utils import params as tparams
 
 CPU = torch.device("cpu")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -33,10 +37,27 @@ if os.path.join(ROOT, "tools") not in sys.path:
     sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 
-def _profiles(rng, n, length):
+def _texts(rng, n, length):
     from make_profiles import make_profile
-    return [HMAPSequence.from_stream(io.StringIO(
-        make_profile(rng, f"s{i}", length))) for i in range(n)]
+    return [make_profile(rng, f"s{i}", length) for i in range(n)]
+
+
+def _parse(texts, cls=HMAPSequence):
+    return [cls.from_stream(io.StringIO(t)) for t in texts]
+
+
+def _profiles(rng, n, length):
+    """n profiles of one length, parsed by the JAX package and by the port
+    (same text)."""
+    texts = _texts(rng, n, length)
+    return _parse(texts), _parse(texts, thmap.HMAPSequence)
+
+
+def _port_params(params):
+    """The port's HMAPaliParams with the same settings as ``params``."""
+    out = tparams.HMAPaliParams()
+    out.__dict__.update(params.__dict__)
+    return out
 
 
 def _bits(x) -> np.ndarray:
@@ -44,7 +65,7 @@ def _bits(x) -> np.ndarray:
 
 
 def _port_similarity(query, templates, params):
-    ev = HMAPaliEval(params)
+    ev = thmap_eval.HMAPaliEval(params)
     lib = hmap_device.DeviceLibrary(templates, ev, device=CPU)
     (t2, b), = lib.buckets.items()
     qp = {k: torch.from_numpy(v)
@@ -75,9 +96,9 @@ def test_similarity_bit_equal_to_jax_and_host(length, n, normalize):
     rng = np.random.default_rng(7 if normalize else 8)
     params = HMAPaliParams()
     params.normalize_mtx = normalize
-    seqs = _profiles(rng, n + 1, length)
+    seqs, mine = _profiles(rng, n + 1, length)
     query, templates = seqs[0], seqs[1:]
-    got = _port_similarity(query, templates, params)
+    got = _port_similarity(mine[0], mine[1:], _port_params(params))
     np.testing.assert_array_equal(
         _bits(got), _bits(_jax_similarity(query, templates, params)))
     ev = HMAPaliEval(params)
@@ -90,11 +111,13 @@ def test_device_library_from_jax():
     """The port's library built from the JAX library holds the same state
     as one built from the templates."""
     rng = np.random.default_rng(10)
-    ts = _profiles(rng, 2, 28) + _profiles(rng, 2, 44)
-    ev = HMAPaliEval(HMAPaliParams())
-    mine = hmap_device.DeviceLibrary(ts, ev, device=CPU)
-    theirs = hmap_device.DeviceLibrary.from_jax(jhd.DeviceLibrary(ts, ev),
-                                                device=CPU)
+    texts = _texts(rng, 2, 28) + _texts(rng, 2, 44)
+    ts = _parse(texts)
+    mine = hmap_device.DeviceLibrary(
+        _parse(texts, thmap.HMAPSequence),
+        thmap_eval.HMAPaliEval(tparams.HMAPaliParams()), device=CPU)
+    theirs = hmap_device.DeviceLibrary.from_jax(
+        jhd.DeviceLibrary(ts, HMAPaliEval(HMAPaliParams())), device=CPU)
     assert list(mine.buckets) == list(theirs.buckets) == [30, 46]
     assert theirs.templates is ts
     for t2, b in mine.buckets.items():
@@ -110,13 +133,14 @@ def test_device_library_from_jax():
 def test_screen_hmap_device_equals_jax():
     rng = np.random.default_rng(9)
     params = HMAPaliParams()
-    seqs = _profiles(rng, 7, 30)
+    seqs, mine = _profiles(rng, 7, 30)
     query, templates = seqs[0], seqs[1:]
     ev = HMAPaliEval(params)
     lib = hmap_device.DeviceLibrary.from_jax(jhd.DeviceLibrary(templates, ev),
                                              device=CPU)
     scores, order = hmap_device.screen_hmap_device(
-        query, templates, params, k=4, library=lib, device=CPU)
+        mine[0], mine[1:], _port_params(params), k=4, library=lib,
+        device=CPU)
     j_scores, j_order = jhd.screen_hmap_device(query, templates, params, k=4,
                                                engine="xla")
     np.testing.assert_array_equal(_bits(scores), _bits(j_scores))
@@ -127,13 +151,17 @@ def test_screen_profiles_mixed_lengths_equals_jax():
     """Several length buckets, ties broken by index."""
     rng = np.random.default_rng(10)
     params = HMAPaliParams()
-    q = _profiles(rng, 1, 40)[0]
-    ts = (_profiles(rng, 2, 28) + _profiles(rng, 2, 44)
-          + _profiles(rng, 1, 28))
-    ts.append(ts[1])                                 # a tie
-    factory = lambda a, b: HMAPaliEval(params)      # noqa: E731
-    scores, order = screen_profiles(q, ts, factory, k=6, device=CPU)
-    j_scores, j_order = jscreen(q, ts, factory, k=6, engine="xla")
+    texts = (_texts(rng, 1, 40) + _texts(rng, 2, 28) + _texts(rng, 2, 44)
+             + _texts(rng, 1, 28))
+    texts.append(texts[2])                           # a tie
+    q, *ts = _parse(texts)
+    mq, *mts = _parse(texts, thmap.HMAPSequence)
+    mparams = _port_params(params)
+    scores, order = screen_profiles(
+        mq, mts, lambda a, b: thmap_eval.HMAPaliEval(mparams), k=6,
+        device=CPU)
+    j_scores, j_order = jscreen(q, ts, lambda a, b: HMAPaliEval(params), k=6,
+                                engine="xla")
     np.testing.assert_array_equal(_bits(scores), _bits(j_scores))
     np.testing.assert_array_equal(order, j_order)
     assert list(order).index(1) < list(order).index(5)
@@ -143,18 +171,30 @@ def test_screen_profiles_mixed_lengths_equals_jax():
 def test_screen_profiles_smap_templates_equal_jax(evaluator):
     """SMAP structure templates: Hmap2Eval routes to the device producer,
     Gn2Eval (its own similarity, full D, a C term) to host costs + K3."""
-    from alignment_algos_tpu.scoring.gn2_eval import Gn2Eval, Gn2Params
-    from alignment_algos_tpu.scoring.hmap2_eval import Hmap2Eval
-    from alignment_algos_tpu.structure.smap import SMAPSequence
+    from alignment_algos_tpu.scoring import gn2_eval, hmap2_eval
+    from alignment_algos_tpu.structure import smap
+    from alignment_algos_tpu_torch.scoring import gn2_eval as tgn2_eval
+    from alignment_algos_tpu_torch.scoring import hmap2_eval as thmap2_eval
+    from alignment_algos_tpu_torch.structure import smap as tsmap
 
-    ts = [SMAPSequence.from_file(os.path.join(DATA, fn), gn2=True)
-          for fn in ("templ_smap.prof", "templ_big.prof", "templ_smap.prof")]
-    query = HMAPSequence.from_file(os.path.join(DATA, "query30.prof"))
-    params = Gn2Params()
-    cls = {"Hmap2Eval": Hmap2Eval, "Gn2Eval": Gn2Eval}[evaluator]
-    factory = lambda q, t: cls(params)               # noqa: E731
-    scores, order = screen_profiles(query, ts, factory, k=3, device=CPU)
-    j_scores, j_order = jscreen(query, ts, factory, k=3, engine="xla")
+    files = [os.path.join(DATA, fn) for fn in
+             ("templ_smap.prof", "templ_big.prof", "templ_smap.prof")]
+    qfile = os.path.join(DATA, "query30.prof")
+    scores = {}
+    for tag, g, h, sm, hm in (
+            ("jax", gn2_eval, hmap2_eval, smap, HMAPSequence),
+            ("port", tgn2_eval, thmap2_eval, tsmap, thmap.HMAPSequence)):
+        ts = [sm.SMAPSequence.from_file(fn, gn2=True) for fn in files]
+        cls = {"Hmap2Eval": h.Hmap2Eval, "Gn2Eval": g.Gn2Eval}[evaluator]
+        params = g.Gn2Params()
+        factory = lambda q, t: cls(params)           # noqa: E731
+        if tag == "jax":
+            scores[tag] = jscreen(hm.from_file(qfile), ts, factory, k=3,
+                                  engine="xla")
+        else:
+            scores[tag] = screen_profiles(hm.from_file(qfile), ts, factory,
+                                          k=3, device=CPU)
+    (scores, order), (j_scores, j_order) = scores["port"], scores["jax"]
     np.testing.assert_array_equal(_bits(scores), _bits(j_scores))
     np.testing.assert_array_equal(order, j_order)
 
@@ -207,9 +247,8 @@ def test_expf_plain_is_host_libm_with_the_domain_rule():
 
 def test_k5_k6_wrappers_route_cpu_tensors_to_the_plain_versions():
     rng = np.random.default_rng(4)
-    params = HMAPaliParams()
-    seqs = _profiles(rng, 3, 20)
-    ev = HMAPaliEval(params)
+    _, seqs = _profiles(rng, 3, 20)
+    ev = thmap_eval.HMAPaliEval(tparams.HMAPaliParams())
     lib = hmap_device.DeviceLibrary(seqs[1:], ev, device=CPU)
     (t2, b), = lib.buckets.items()
     qp = {k: torch.from_numpy(v)

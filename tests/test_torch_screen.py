@@ -1,11 +1,12 @@
 """The port's library screen, checkpointed screen and ``aat_screen`` CLI
 against the JAX package: equal indices and scores (ties included), and
 byte-equal CLI output (FASTA, --profiles 1 and --smap 1 modes) on the
-tests/test_screen_cli.py fixture recipes."""
+tests/test_screen_cli.py fixture recipes.  (The subprocess runs that show
+the port loads neither jax nor the JAX package are in
+tests/test_torch_isolation.py.)"""
 
 import io
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -135,22 +136,6 @@ def test_cli_stdout_byte_equal_to_jax(fastas, extra, tmp_path, monkeypatch):
     assert "cluster 1:" in outs[1]
 
 
-def test_cli_subprocess_never_imports_jax(fastas):
-    code = ("import sys\n"
-            "from alignment_algos_tpu_torch.cli.screen import main\n"
-            f"rc = main({[*fastas, '--SUB_MATRIX', BLOSUM]!r})\n"
-            "print('JAX_IMPORTED', 'jax' in sys.modules)\n"
-            "sys.exit(rc)\n")
-    env = dict(os.environ, AAT_TORCH_DEVICE="cpu",
-               PYTHONPATH=os.pathsep.join(
-                   [ROOT, os.environ.get("PYTHONPATH", "")]))
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
-    assert "# rank\tscore\tindex\tname" in proc.stdout
-    assert proc.stdout.strip().endswith("JAX_IMPORTED False")
-
-
 @pytest.fixture(scope="module")
 def profile_lib(tmp_path_factory):
     """The tests/test_screen_cli.py profile fixture recipe: a 40-residue
@@ -197,22 +182,6 @@ def test_cli_profile_modes_byte_equal_to_jax(profile_lib, mode, monkeypatch):
     assert outs[0] == outs[1]
     assert len([l for l in outs[1].splitlines() if "\t" in l
                 and not l.startswith("#")]) == (2 if mode == "smap" else 4)
-
-
-def test_cli_profiles_subprocess_never_imports_jax(profile_lib):
-    code = ("import sys\n"
-            "from alignment_algos_tpu_torch.cli.screen import main\n"
-            f"rc = main({_profile_argv(profile_lib, 'profiles')!r})\n"
-            "print('JAX_IMPORTED', 'jax' in sys.modules)\n"
-            "sys.exit(rc)\n")
-    env = dict(os.environ, AAT_TORCH_DEVICE="cpu",
-               PYTHONPATH=os.pathsep.join(
-                   [ROOT, os.environ.get("PYTHONPATH", "")]))
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
-    assert "# rank\tscore\tindex\tfile" in proc.stdout
-    assert proc.stdout.strip().endswith("JAX_IMPORTED False")
 
 
 def test_cli_refuses_cuda_without_a_card(fastas, monkeypatch):

@@ -6,39 +6,36 @@ reference's output); ``gn2``, ``nalign2``, ``gnoali``, ``S4_align`` and
 ``S4_one_ali`` are byte-equal to the reference tool run in the same
 process on the host oracle (``core.dp.set_backend("numpy")``).  The port's
 builds of 40 or more reach K7's plain version here (``AAT_TORCH_DEVICE=cpu``).
+Each package reads the input files with its own classes.
 """
 
 import contextlib
 import io
 import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 import torch
 
-from alignment_algos_tpu.cli import aaa as raaa
 from alignment_algos_tpu.cli import gn2 as rgn2
 from alignment_algos_tpu.cli import gnoali as rgnoali
-from alignment_algos_tpu.cli import nalign as rnalign
 from alignment_algos_tpu.cli import nalign2 as rnalign2
 from alignment_algos_tpu.cli import s4_align as rs4
 from alignment_algos_tpu.cli import s4_one_ali as rs4one
 from alignment_algos_tpu.core import dp as rdp
-from alignment_algos_tpu.ssss import engine as rssss
 from alignment_algos_tpu_torch.cli import (aaa, gn2, gnoali, nalign, nalign2,
                                            s4_align, s4_one_ali)
 from alignment_algos_tpu_torch.core import dp as tdp
 from alignment_algos_tpu_torch.ops import dp_engine
+from alignment_algos_tpu_torch.scoring import gn2_eval as tgn2_eval
+from alignment_algos_tpu_torch.seq import hmap as thmap
+from alignment_algos_tpu_torch.structure import smap as tsmap
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "tests", "data")
 GOLD = os.path.join(ROOT, "tests", "golden")
 INP = os.path.join(GOLD, "inputs")
 BLOSUM = os.path.join(DATA, "BLOSUM62")
-REF_MODULES = (raaa, rgn2, rgnoali, rnalign, rnalign2, rs4, rs4one, rdp,
-               rssss)
 
 
 @pytest.fixture(autouse=True)
@@ -176,18 +173,21 @@ def test_gn2_crcw_rebuilds_once_per_round(k7_builds):
 
 def test_dpmatrix_matches_reference_dpmatrix():
     """The port's DPMatrix (K7's plain version) against the reference's
-    (the JAX engine) on the real-scale gn2 pair: forward, reevaluate,
-    reverse and a sub-rectangle."""
+    (the JAX engine) on the real-scale gn2 pair, each on its own package's
+    sequences and evaluator: forward, reevaluate, reverse and a
+    sub-rectangle."""
     from alignment_algos_tpu.scoring.gn2_eval import Gn2Eval, Gn2Params
     from alignment_algos_tpu.seq.hmap import HMAPSequence
     from alignment_algos_tpu.structure.smap import SMAPSequence
-    query = HMAPSequence.from_file(REAL[0])
-    templ = SMAPSequence.from_file(REAL[1], gn2=True)
-    ev = Gn2Eval(Gn2Params())
+    r_args = (HMAPSequence.from_file(REAL[0]),
+              SMAPSequence.from_file(REAL[1], gn2=True), Gn2Eval(Gn2Params()))
+    t_args = (thmap.HMAPSequence.from_file(REAL[0]),
+              tsmap.SMAPSequence.from_file(REAL[1], gn2=True),
+              tgn2_eval.Gn2Eval(tgn2_eval.Gn2Params()))
     for kw in ({}, {"direction": tdp.REV},
                {"sub_bounds": (30, 41, 120, 160)}):
-        mine = tdp.DPMatrix(query, templ, ev, **kw)
-        ref = rdp.DPMatrix(query, templ, ev, **kw)
+        mine = tdp.DPMatrix(*t_args, **kw)
+        ref = rdp.DPMatrix(*r_args, **kw)
         for name in ("H", "PQ", "PT"):
             np.testing.assert_array_equal(getattr(mine.res, name),
                                           getattr(ref.res, name))
@@ -199,13 +199,10 @@ def test_dpmatrix_matches_reference_dpmatrix():
 def test_backend_routing(monkeypatch, k7_builds):
     """auto: K7 from a side of 40; torch: always; numpy: never; any other
     name raises."""
-    from alignment_algos_tpu.scoring.gn2_eval import Gn2Eval, Gn2Params
-    from alignment_algos_tpu.seq.hmap import HMAPSequence
-    from alignment_algos_tpu.structure.smap import SMAPSequence
-    query = HMAPSequence.from_file(os.path.join(DATA, "query30.prof"))
-    templ = SMAPSequence.from_file(os.path.join(DATA, "templ_smap.prof"),
-                                   gn2=True)
-    ev = Gn2Eval(Gn2Params())
+    query = thmap.HMAPSequence.from_file(os.path.join(DATA, "query30.prof"))
+    templ = tsmap.SMAPSequence.from_file(
+        os.path.join(DATA, "templ_smap.prof"), gn2=True)
+    ev = tgn2_eval.Gn2Eval(tgn2_eval.Gn2Params())
     monkeypatch.setattr(tdp, "_backend", "auto")
     small = tdp.DPMatrix(query, templ, ev)
     assert max(small.costs.S.shape) < tdp.AUTO_MIN_SIZE and k7_builds == []
@@ -225,24 +222,6 @@ def test_backend_routing(monkeypatch, k7_builds):
         tdp.DPMatrix(query, templ, ev)
 
 
-def test_reference_modules_untouched():
-    """Running the port's tools leaves every reference module's globals as
-    they were: the port's classes live only in the rebound copies."""
-    before = {m.__name__: dict(vars(m)) for m in REF_MODULES}
-    capture(nalign.main, [os.path.join(INP, "qA.prof"),
-                          os.path.join(INP, "tA.prof"), "-opt"])
-    capture(s4_align.main, BIG_S4 + ["--max_returned", "1"], False)
-    for m in REF_MODULES:
-        now = vars(m)
-        assert now.keys() == before[m.__name__].keys(), m.__name__
-        assert all(now[k] is v for k, v in before[m.__name__].items())
-    for m in (raaa, rgn2, rgnoali, rnalign, rnalign2, rs4, rs4one):
-        assert m.DPMatrix is rdp.DPMatrix
-        assert m._run.__globals__ is vars(m)
-    assert rs4.SSSS is rssss.SSSS and rssss.DPMatrix is rdp.DPMatrix
-    assert nalign._run.__globals__["DPMatrix"] is tdp.DPMatrix
-
-
 def test_cli_refuses_cuda_without_a_card(monkeypatch):
     monkeypatch.setenv("AAT_TORCH_DEVICE", "cuda")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -253,21 +232,3 @@ def test_cli_refuses_cuda_without_a_card(monkeypatch):
     assert rc != 0 and out.getvalue() == ""
     assert "AAT_TORCH_DEVICE" in err.getvalue()
 
-
-def test_nalign_subprocess_never_imports_jax():
-    argv = [os.path.join(INP, "qA.prof"), os.path.join(INP, "tA.prof"),
-            "-opt"]
-    code = ("import sys\n"
-            "from alignment_algos_tpu_torch.cli.nalign import main\n"
-            f"rc = main({argv!r})\n"
-            "print('JAX_IMPORTED', 'jax' in sys.modules)\n"
-            "sys.exit(rc)\n")
-    env = dict(os.environ, AAT_TORCH_DEVICE="cpu",
-               HOME="/tmp/nonexistent-home",
-               PYTHONPATH=os.pathsep.join(
-                   [ROOT, os.environ.get("PYTHONPATH", "")]))
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.startswith(gold("nalign_opt"))
-    assert proc.stdout.strip().endswith("JAX_IMPORTED False")

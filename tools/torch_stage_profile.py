@@ -57,8 +57,9 @@ def sync() -> float:
 
 def replay(qfa, lfa, blosum, gi, ge, dev):
     """One pass over the CLI's stages; returns {stage: seconds}."""
-    from alignment_algos_tpu.analysis.ali_dist import ResPair, area_matrix
-    from alignment_algos_tpu.analysis.upgma import UPGMAClusterer
+    from alignment_algos_tpu_torch.analysis.ali_dist import (ResPair,
+                                                             area_matrix)
+    from alignment_algos_tpu_torch.analysis.upgma import UPGMAClusterer
     from alignment_algos_tpu_torch.cli import screen as cli
     from alignment_algos_tpu_torch.ops import swaffine as sw
 
