@@ -41,7 +41,8 @@ from ..utils.torchenv import device_from_env
 __all__ = ["PAD_WALL", "ScreenInputs", "main", "read_inputs",
            "read_profiles"]
 
-# the JAX package's aat_screen encoding (cli/screen.py:37-76), verbatim
+# the JAX package's aat_screen encoding (cli/screen.py:37-76), verbatim but
+# for encode_library, which gives the same codes by a byte table
 PAD_WALL = -1.0e4
 
 
@@ -67,12 +68,37 @@ def read_fasta_plain(fn: str) -> list[tuple[str, str]]:
     return out
 
 
+def _byte_table(index: dict[str, int]) -> np.ndarray:
+    """256-entry int32 table: an ASCII byte's code in ``index``, -1 for
+    every other byte."""
+    table = np.full(256, -1, dtype=np.int32)
+    for c, i in index.items():
+        if len(c) == 1 and c.isascii():
+            table[ord(c)] = i
+    return table
+
+
 def encode_library(seqs: list[str], index: dict[str, int], pad_code: int):
-    """Pad-encode to (N, Tmax) int32 with the pad wall code."""
-    tmax = max(len(s) for s in seqs)
+    """Pad-encode to (N, Tmax) int32 with the pad wall code.
+
+    The codes equal the JAX tool's ``[index[c] for c in s.upper()]`` per
+    sequence, by one byte-table lookup over the whole upper-cased library.
+    A sequence holding a byte outside the alphabet (a non-ASCII character
+    among them) goes through that very expression, so it raises the same
+    ``KeyError``."""
+    lens = np.fromiter(map(len, seqs), dtype=np.int64, count=len(seqs))
+    tmax = int(lens.max())
     codes = np.full((len(seqs), tmax), pad_code, dtype=np.int32)
-    for i, s in enumerate(seqs):
-        codes[i, : len(s)] = [index[c] for c in s.upper()]
+    # a non-ASCII sequence stands as NUL bytes (code -1) of its length, so
+    # the ASCII upper-casing keeps every offset
+    buf = "".join(s if s.isascii() else "\0" * len(s)
+                  for s in seqs).upper().encode("ascii")
+    flat = _byte_table(index)[np.frombuffer(buf, dtype=np.uint8)]
+    codes[np.arange(tmax) < lens[:, None]] = flat
+    if flat.size and flat.min() < 0:
+        for i in np.flatnonzero((codes < 0).any(axis=1)):
+            s = seqs[i]
+            codes[i, : len(s)] = [index[c] for c in s.upper()]
     return codes
 
 
@@ -105,7 +131,7 @@ def read_inputs(query_fa: str, library_fa: str,
     bl = BlosumMatrix(submatrix_fn)
     table, pad_code = padded_table(bl)
     index = {c: i for i, c in enumerate(bl.alphabet)}
-    q_codes = np.asarray([index[c] for c in query_seq.upper()], dtype=np.int32)
+    q_codes = encode_library([query_seq], index, pad_code)[0]
     t_codes = encode_library([s for _, s in library], index, pad_code)
     return ScreenInputs(query_name, len(query_seq), [n for n, _ in library],
                         q_codes, t_codes, table, pad_code)

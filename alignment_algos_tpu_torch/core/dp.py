@@ -5,7 +5,8 @@ port's engines.  ``DPMatrix._build`` routes as the reference's does
 (core/dp.py:105-137):
 
 1. constant-affine whole-matrix forward builds: the host fast path
-   :mod:`..ops.dp_affine`;
+   :mod:`..ops.dp_affine`, when H's magnitude also stays in its exact
+   range (:func:`_affine_h_exact`; the reference checks only the costs);
 2. rectangles with a side of ``AUTO_MIN_SIZE`` or more, or every build under
    the ``torch`` backend: K7 through :mod:`..ops.dp_engine`, on the device
    that ``AAT_TORCH_DEVICE`` names;
@@ -23,6 +24,8 @@ any ``DPMatrix``.
 from __future__ import annotations
 
 import os
+
+import numpy as np
 
 from ..ops import dp_affine, dp_engine, dp_ref
 from ..scoring.base import DPCosts
@@ -52,6 +55,22 @@ def _use_device(rows: int, cols: int) -> bool:
     if _backend != "auto":
         return _backend == "torch"
     return max(rows, cols) >= AUTO_MIN_SIZE
+
+
+def _affine_h_exact(c: DPCosts, gi: float, ge: float) -> bool:
+    """Whether ``dp_affine`` stays exact on ``c`` once its own gate passed.
+
+    That gate bounds max|S| + max(|gi|, |ge|)(Q + T) but not H, which
+    reaches max|S| min(Q, T); past 2^24 the reassociated sums round apart
+    from ``dp_ref``'s (a fault of the reference's gate, shown in
+    tests/test_torch_dp_engine.py).  The same tiers bound H's magnitude
+    too: 2^22 for integer costs, 2^14 for multiples of 1/256."""
+    s = float(np.abs(c.S).max()) if c.S.size else 0.0
+    bound = (s * min(c.q_size, c.t_size)
+             + max(abs(float(gi)), abs(float(ge))) * (c.q_size + c.t_size))
+    integer = (gi == round(gi) and ge == round(ge)
+               and bool(np.all(c.S == np.round(c.S))))
+    return bound < (2 ** 22 if integer else 2 ** 14)
 
 
 def build(c, q0: int, q1: int, t0: int, t1: int, direction: str = FWD,
@@ -136,7 +155,7 @@ class DPMatrix:
 
         if self.direction == FWD and self.sub_bounds is None:
             aff = dp_affine.affine_consts(c)
-            if aff is not None:
+            if aff is not None and _affine_h_exact(c, *aff):
                 self.res = dp_affine.build_forward_affine(
                     c, q0, q1, t0, t1, aff[0], aff[1], local=self.islocal)
                 return

@@ -41,6 +41,8 @@ SIGNATURES = {
     "sw_scores_launch": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
     "sw_tb_launch": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                      _P),
+    "sw_decode_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _P),
     "dp_general_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P),
     "dp_tb_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

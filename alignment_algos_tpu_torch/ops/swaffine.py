@@ -1,21 +1,26 @@
 """Batched local affine-gap Smith-Waterman (Gotoh) on PyTorch + CUDA.
 
-Counterpart of ``alignment_algos_tpu/ops/swaffine.py``.  Two hand-written
-Hopper kernels (``csrc/sw_gotoh.cu``) carry the screen:
+Counterpart of ``alignment_algos_tpu/ops/swaffine.py``.  Three
+hand-written Hopper kernels carry the screen:
 
-* :func:`sw_affine_scores` (K1): (B,) best local scores.  It replaces the
-  TPU's ``swscan._rowscan_kernel``, ``swstrip._sw_strip_kernel`` and
-  ``swaffine._sw_kernel``, which compute one function (their docstrings
-  and tests say bit-equal).
-* :func:`sw_affine_tb` (K2): per-cell traceback codes, per-row running max
-  and its anti-diagonal.  It replaces ``swaffine._sw_tb_kernel``.
+* :func:`sw_affine_scores` (K1, ``csrc/sw_gotoh.cu``): (B,) best local
+  scores.  It replaces the TPU's ``swscan._rowscan_kernel``,
+  ``swstrip._sw_strip_kernel`` and ``swaffine._sw_kernel``, which compute
+  one function (their docstrings and tests say bit-equal).
+* :func:`sw_affine_tb` (K2, same file): per-cell traceback codes, per-row
+  running max and its anti-diagonal.  It replaces
+  ``swaffine._sw_tb_kernel``.
+* :func:`sw_decode` (K8, ``csrc/sw_decode.cu``): the walk of K2's codes
+  into matched-pair records.  It replaces the XLA device loop
+  ``swaffine._decode_tb_device``.
 
 Beside each kernel is its plain PyTorch version, a line-by-line port of
-the JAX twin (``sw_affine_scores_xla`` / ``sw_affine_tb_xla``) over the
-skewed similarity.  A wrapper given CPU tensors runs the plain version;
-given CUDA tensors it launches its kernel or raises (no fallback).  Every
-value is built with float32 add, subtract and max in the twins' op order,
-so kernel, plain version and JAX agree bit for bit at any gap values.
+the JAX twin (``sw_affine_scores_xla`` / ``sw_affine_tb_xla`` over the
+skewed similarity; ``_decode_tb_device``'s loop).  A wrapper given CPU
+tensors runs the plain version; given CUDA tensors it launches its kernel
+or raises (no fallback).  Every value is built with float32 add, subtract
+and max in the twins' op order, so kernel, plain version and JAX agree bit
+for bit at any gap values.
 
 Kernel input layout (see :func:`to_device`): query codes (Q,) int32 for one
 query shared by all lanes, or (Q, B) for one query per lane; template codes
@@ -363,12 +368,14 @@ def _paths(rec_i: np.ndarray, rec_j: np.ndarray, b: int):
     return paths
 
 
-def _decode_tb_device(tb: torch.Tensor, m: torch.Tensor, dat: torch.Tensor,
-                      *, q: int, t: int, b: int):
-    """Port of the JAX ``_decode_tb_device`` loop, on the tensors' device:
-    the traceback codes never leave it, only the (max_steps, B) matched
-    pair records do.  Stops early once no lane is alive (checked every 32
-    steps); the records are unchanged by the steps it skips."""
+def decode_tb_plain(tb: torch.Tensor, m: torch.Tensor, dat: torch.Tensor,
+                    *, q: int, t: int, b: int):
+    """K8's plain version: a port of the JAX ``_decode_tb_device`` loop, on
+    the tensors' device.  Returns (scores (b,) float32, the column max of
+    m[:q, :b]; rec_i, rec_j (q + t + 2, b) int32, the matched (i, j) of
+    each walk at the step that matched it, -1 elsewhere).  Stops early
+    once no lane is alive (checked every 32 steps); the records are
+    unchanged by the steps it skips."""
     dev = tb.device
     lanes = torch.arange(b, device=dev)
     mq = m[:q, :b]
@@ -414,13 +421,69 @@ def _decode_tb_device(tb: torch.Tensor, m: torch.Tensor, dat: torch.Tensor,
     return scores, rec_i, rec_j
 
 
+def _check_decode(tb, m, dat, q: int, t: int, b: int) -> None:
+    """Validate K8's input contract (tb (ND, QP, LDB) int8; m, dat (>= q,
+    LDM) float32 / int32; 1 <= b <= min(LDB, LDM))."""
+    dev = tb.device
+    for name, x, dt in (("tb", tb, torch.int8), ("m", m, torch.float32),
+                        ("dat", dat, torch.int32)):
+        if x.dtype != dt:
+            raise TypeError(f"{name}: expected {dt}, got {x.dtype}")
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, tb on {dev}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if tb.dim() != 3 or m.dim() != 2 or dat.shape != m.shape:
+        raise ValueError(f"expected tb (ND, QP, LDB) and m, dat (rows, LDM) "
+                         f"of one shape; got {tuple(tb.shape)}, "
+                         f"{tuple(m.shape)}, {tuple(dat.shape)}")
+    if min(tb.shape) < 1 or min(q, t, b) < 1 or q > m.shape[0] \
+            or b > min(m.shape[1], tb.shape[2]):
+        raise ValueError(f"q={q}, t={t}, b={b} do not fit tb "
+                         f"{tuple(tb.shape)} and m {tuple(m.shape)}")
+
+
+def sw_decode(tb: torch.Tensor, m: torch.Tensor, dat: torch.Tensor, *,
+              q: int, t: int, b: int):
+    """K8: the traceback decode of K2's codes (counterpart of the JAX
+    ``_decode_tb_device``); returns what :func:`decode_tb_plain` returns.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (``csrc/sw_decode.cu``), with no host sync."""
+    _check_decode(tb, m, dat, q, t, b)
+    if tb.device.type == "cpu":
+        return decode_tb_plain(tb, m, dat, q=q, t=t, b=b)
+    if tb.device.type != "cuda":
+        raise ValueError(f"no kernel for device {tb.device}")
+    dev = tb.device
+    max_steps = q + t + 2
+    scores = torch.empty((b,), dtype=torch.float32, device=dev)
+    # the kernel writes every entry: a match's (i, j), else -1
+    rec_i = torch.empty((max_steps, b), dtype=torch.int32, device=dev)
+    rec_j = torch.empty((max_steps, b), dtype=torch.int32, device=dev)
+    lib = _build.load().lib
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sw_decode_launch(
+            tb.data_ptr(), m.data_ptr(), dat.data_ptr(), scores.data_ptr(),
+            rec_i.data_ptr(), rec_j.data_ptr(), q, t, b, *tb.shape,
+            m.shape[1], stream)
+    _build.check(err, "sw_decode_launch")
+    sw_decode.launches += 1
+    return scores, rec_i, rec_j
+
+
+sw_decode.launches = 0
+
+
 def decode_local_tracebacks_device(tb: torch.Tensor, m: torch.Tensor,
                                    dat: torch.Tensor, q: int, t: int,
                                    nb: int | None = None):
-    """Decode on the tensors' device, then extract paths on the host; the
-    same (scores, paths) as :func:`decode_local_tracebacks`."""
+    """Decode on the tensors' device (K8, or its plain version on the CPU),
+    then extract paths on the host; the same (scores, paths) as
+    :func:`decode_local_tracebacks`."""
     b = m.shape[1] if nb is None else nb
-    scores, rec_i, rec_j = _decode_tb_device(tb, m, dat, q=q, t=t, b=b)
+    scores, rec_i, rec_j = sw_decode(tb, m, dat, q=q, t=t, b=b)
     return (scores.cpu().numpy(),
             _paths(rec_i.cpu().numpy(), rec_j.cpu().numpy(), b))
 
@@ -428,8 +491,8 @@ def decode_local_tracebacks_device(tb: torch.Tensor, m: torch.Tensor,
 def sw_affine_tb_batch(q_codes, t_codes, table, gi: float, ge: float, *,
                        device: torch.device):
     """End-to-end batched local SW with alignments: host codes (B, Q) x
-    (B, T) -> K2 on ``device`` (its plain version on the CPU) -> decode on
-    ``device``.  Returns (scores (B,), paths) as the JAX package's
+    (B, T) -> K2 and K8 on ``device`` (their plain versions on the CPU).
+    Returns (scores (B,), paths) as the JAX package's
     ``sw_affine_tb_batch``; routes on the tensors' device."""
     q, t, tab, gap = to_device(q_codes, t_codes, table, gi, ge, device)
     nq, nt = q.shape[0], t.shape[0]

@@ -70,11 +70,13 @@ def screen_profiles(query, templates, evaluator_factory, k: int = 10, *,
     """Exact-scoring profile screen: one query profile against a list of
     template profiles, scores bit-equal to per-pair reference DP builds.
 
-    ``HMAPaliEval`` and ``Hmap2Eval`` evaluators whose ``build_costs`` is
-    not overridden build the similarity on ``device``
-    (``hmap_device.screen_hmap_device``); every other evaluator (e.g.
-    ``Gn2Eval``) builds its costs on the host, and each (q2, t2) bucket is
-    scored by K3 (``dp_scores.forward_scores_batch``).
+    Evaluators of exactly the classes ``HMAPaliEval`` or ``Hmap2Eval``
+    build the similarity on ``device`` (``hmap_device.screen_hmap_device``,
+    which reuses the first template's evaluator for the whole library);
+    every other evaluator, subclasses of those included (one may keep
+    per-template state or its own gap vectors), builds its costs on the
+    host per pair, and each (q2, t2) bucket is scored by K3
+    (``dp_scores.forward_scores_batch``).
 
     evaluator_factory(query, templ) -> evaluator with build_costs().
     Returns (scores float32 (N,), top-k indices, score descending then index
@@ -86,8 +88,7 @@ def screen_profiles(query, templates, evaluator_factory, k: int = 10, *,
     device = torch.device(device)
     if templates:
         ev0 = evaluator_factory(query, templates[0])
-        if isinstance(ev0, HMAPaliEval) and type(ev0).build_costs in (
-                HMAPaliEval.build_costs, Hmap2Eval.build_costs):
+        if type(ev0) in (HMAPaliEval, Hmap2Eval):
             return hmap_device.screen_hmap_device(
                 query, templates, ev0.params, k=k, ev=ev0, device=device)
 

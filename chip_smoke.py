@@ -14,7 +14,10 @@
    lanes); K1 also against the numpy Gotoh oracle on 2 lanes (one query
    chunk and three), and ``screen_library``'s top-k through K1 against
    ``screen_library_host`` (plain version on the card, ranked by
-   ``np.lexsort``).
+   ``np.lexsort``).  K8 (the traceback decode) on K2's output at 512 x
+   512 x 10 and at the stripe and chunk edges, at both gap settings,
+   against its plain version (``torch.equal``) and its paths against the
+   numpy decode.
 4. Drives the FASTA main path, ``aat_screen`` (the port's
    ``cli/screen.py``), at a deployment's size: one 512-residue query
    against 5120 templates of 64-512 residues padded to 512 with the pad
@@ -23,7 +26,7 @@
    native libraries, outside the timed runs and the launch counts.  Runs
    (a) default gaps, (b) --gap_init 11 --gap_extn 1, (c) (a) with --ckpt
    and --chunk_size 1024; checks the homologs rank 1-8 and share a cluster,
-   (c) equals (a), both kernels launched in every run, and JAX never
+   (c) equals (a), K1, K2 and K8 launched in every run, and JAX never
    imported.
 5. The exact profile path.  Fails unless the host libm ``expf`` loaded
    (the port's ``native`` raises without it).  Generates one
@@ -91,6 +94,7 @@ N_HOMOLOGS, TOP_K, CHUNK = 8, 10, 1024
 GAPS = [(4.73, 0.34), (11.0, 1.0)]
 AA = "ARNDCQEGHILKMFPSTWYV"
 K1_SRC = K2_SRC = "alignment_algos_tpu_torch/ops/csrc/sw_gotoh.cu"
+K8_SRC = "alignment_algos_tpu_torch/ops/csrc/sw_decode.cu"
 K3_SRC = "alignment_algos_tpu_torch/ops/csrc/dp_general.cu"
 K56_SRC = "alignment_algos_tpu_torch/ops/csrc/hmap_device.cu"
 K7_SRC = "alignment_algos_tpu_torch/ops/csrc/dp_traceback.cu"
@@ -208,10 +212,11 @@ def max_abs(a, b) -> float:
 
 def check_kernels(sw, q, t, table, pad, dev):
     """Phase 3: every comparison with tolerance 0; returns per-kernel
-    (max_abs_err, ms, plain_ms)."""
+    (max_abs_err, ms, plain_ms) and the tb bytes K8's timed decode
+    reads."""
     import torch
     from alignment_algos_tpu_torch.parallel import screen as ps
-    err = {"k1": 0.0, "k2": 0.0}
+    err = {"k1": 0.0, "k2": 0.0, "k8": 0.0}
 
     def k1_vs_plain(qc, tc, tab, gap, got=None):
         if got is None:
@@ -230,6 +235,21 @@ def check_kernels(sw, q, t, table, pad, dev):
         for g, w, name in zip(got, want, ("tb", "m", "dat")):
             assert g.shape == w.shape and torch.equal(g, w), f"K2 {name}"
             err["k2"] = max(err["k2"], max_abs(g, w))
+        return got
+
+    def k8_vs_plain_and_numpy(tb, m, dat, nq, nt):
+        b = m.shape[1]
+        got = sw.sw_decode(tb, m, dat, q=nq, t=nt, b=b)
+        want = sw.decode_tb_plain(tb, m, dat, q=nq, t=nt, b=b)
+        torch.cuda.synchronize()
+        for g, w, name in zip(got, want, ("scores", "rec_i", "rec_j")):
+            assert g.shape == w.shape and torch.equal(g, w), f"K8 {name}"
+            err["k8"] = max(err["k8"], max_abs(g, w))
+        scores, paths = sw.decode_local_tracebacks(
+            tb.cpu().numpy(), m.cpu().numpy(), dat.cpu().numpy(), nq, nt)
+        np.testing.assert_array_equal(got[0].cpu().numpy(), scores)
+        assert sw._paths(got[1].cpu().numpy(), got[2].cpu().numpy(),
+                         b) == paths, "K8 paths != numpy decode"
 
     rng = np.random.default_rng(SEED + 1)
     for gi, ge in GAPS:
@@ -252,9 +272,10 @@ def check_kernels(sw, q, t, table, pad, dev):
             for qarg in (qc[0], qc):
                 args = sw.to_device(qarg, tc, table, gi, ge, dev)
                 k1_vs_plain(*args)
-                k2_vs_plain(*args)
+                k8_vs_plain_and_numpy(*k2_vs_plain(*args), nq, nt)
         log(f"stripe and chunk edges {SW_EDGES} (Q, T, B): K1 and K2 equal "
-            f"plain, shared query and one per lane, gaps {gi}/{ge}")
+            f"plain, shared query and one per lane, and K8 on K2's codes "
+            f"equals plain and the numpy decode, gaps {gi}/{ge}")
 
         qd, td, tab, gap = sw.to_device(q, t, table, gi, ge, dev)
         full = sw.sw_affine_scores(qd, td, tab, gap)
@@ -272,9 +293,10 @@ def check_kernels(sw, q, t, table, pad, dev):
             f"screen_library_host (plain, lexsort), gaps {gi}/{ge}")
         hits = np.broadcast_to(q, (TOP_K, Q_LEN))
         k2_args = sw.to_device(hits, t[:TOP_K], table, gi, ge, dev)
-        k2_vs_plain(*k2_args)
-        log(f"K2 equals plain at {Q_LEN} x {t.shape[1]} x {TOP_K}, "
-            f"gaps {gi}/{ge}")
+        k8_vs_plain_and_numpy(*k2_vs_plain(*k2_args), Q_LEN, t.shape[1])
+        log(f"K2 equals plain at {Q_LEN} x {t.shape[1]} x {TOP_K}, and K8 "
+            f"on its codes equals plain and the numpy decode, gaps "
+            f"{gi}/{ge}")
 
         # the numpy oracle, in float32 throughout, on 2 lanes: the main
         # path's, and three query chunks (1031 rows)
@@ -304,8 +326,40 @@ def check_kernels(sw, q, t, table, pad, dev):
     k2_ms = cuda_ms(lambda: sw.sw_affine_tb(qh, th, tab, gap), 3)
     k2_plain_ms = cuda_ms(lambda: sw.sw_affine_tb_plain(
         sw.skewed_similarity(qh, th, tab), gap, q=Q_LEN, t=th.shape[0]), 1)
-    return {"k1": (err["k1"], k1_ms, k1_plain_ms),
-            "k2": (err["k2"], k2_ms, k2_plain_ms)}
+    # K8 on K2's codes of the main path's hits, as the screen decodes them
+    tb, m, dat = sw.sw_affine_tb(qh, th, tab, gap)
+    dec = dict(q=Q_LEN, t=th.shape[0], b=TOP_K)
+    k8_ms = cuda_ms(lambda: sw.sw_decode(tb, m, dat, **dec), 5)
+    k8_plain_ms = cuda_ms(lambda: sw.decode_tb_plain(tb, m, dat, **dec), 1)
+    return ({"k1": (err["k1"], k1_ms, k1_plain_ms),
+             "k2": (err["k2"], k2_ms, k2_plain_ms),
+             "k8": (err["k8"], k8_ms, k8_plain_ms)},
+            walk_reads(tb, m, dat, Q_LEN, TOP_K))
+
+
+def walk_reads(tb, m, dat, q: int, b: int) -> int:
+    """The tb bytes that the decode of these codes reads: one per step at
+    which a lane's walk is alive (K8's bound counts what this run's data
+    needs).  A scalar walk per lane on the host."""
+    tb, m, dat = (x.cpu().numpy() for x in (tb, m, dat))
+    reads = 0
+    for lane in range(b):
+        bi = int(np.argmax(m[:q, lane]))
+        if not m[bi, lane] > 0.0:
+            continue
+        i, j, state = bi, int(dat[bi, lane]) - bi, 0
+        while i >= 0 and j >= 0:
+            c = int(tb[i + j, i, lane])
+            reads += 1
+            if state == 0 and c & 3 == 0:
+                break
+            if state == 0 and c & 3 == 1:
+                i, j = i - 1, j - 1
+            elif state == 1 or (state == 0 and c & 3 == 2):
+                state, j = (1 if c & 4 else 0), j - 1
+            else:
+                state, i = (2 if c & 8 else 0), i - 1
+    return reads
 
 
 def run_cli(main, argv, *args, errors=None):
@@ -923,7 +977,7 @@ def main() -> int:
         inp = cli.read_inputs(qfa, lfa, blosum)
         q, t, table, pad = inp.q_codes, inp.t_codes, inp.table, inp.pad_code
         assert t.shape == (N_LIB, T_MAX), t.shape
-        timing = check_kernels(sw, q, t, table, pad, dev)
+        timing, k8_reads = check_kernels(sw, q, t, table, pad, dev)
 
         # host set-up outside the timed runs: the alignment-distance code
         # builds its native library at first use
@@ -944,14 +998,15 @@ def main() -> int:
                 "--ckpt", os.path.join(d, "state.npz"),
                 "--chunk_size", str(CHUNK)],
         }
-        sw.sw_affine_scores.launches = 0
-        sw.sw_affine_tb.launches = 0
+        counters = (sw.sw_affine_scores, sw.sw_affine_tb, sw.sw_decode)
+        for fn in counters:
+            fn.launches = 0
         outs = {}
         for name, argv in runs.items():
-            before = (sw.sw_affine_scores.launches, sw.sw_affine_tb.launches)
+            before = [fn.launches for fn in counters]
             out, wall = run_cli(cli.main, argv)
-            after = (sw.sw_affine_scores.launches, sw.sw_affine_tb.launches)
-            assert after[0] > before[0] and after[1] > before[1], \
+            after = [fn.launches for fn in counters]
+            assert all(a > b for a, b in zip(after, before)), \
                 f"run {name}: kernel launches {before} -> {after}"
             rows = rows_of(out)
             assert len(rows) == TOP_K, out
@@ -963,12 +1018,13 @@ def main() -> int:
             outs[name] = out
             log(f"run {name}: wall {wall:.3f} s, {cells / wall:.4g} cells/s "
                 f"({cells} cells; K1 +{after[0] - before[0]}, "
-                f"K2 +{after[1] - before[1]} launches) on {card}")
+                f"K2 +{after[1] - before[1]}, K8 +{after[2] - before[2]} "
+                f"launches) on {card}")
             log("  top hits: " + ", ".join(f"{r[3]}={r[1]}" for r in rows))
         a, c = list(outs.values())[0], list(outs.values())[2]
         assert rows_of(a) == rows_of(c), "checkpointed run differs from (a)"
-        launches = {"k1": sw.sw_affine_scores.launches,
-                    "k2": sw.sw_affine_tb.launches}
+        launches = dict(zip(("k1", "k2", "k8"),
+                            (fn.launches for fn in counters)))
 
         # phase 5: the exact profile screen
         t0 = time.perf_counter()
@@ -1002,8 +1058,9 @@ def main() -> int:
         log(f"{k}: kernel {ms:.3f} ms, plain {pms:.3f} ms, max_abs_err {e} "
             f"on {card}")
     # each kernel's bound at the shape it was timed at; no single PyTorch
-    # call computes any of these functions (dependent DP recurrences and a
-    # serial chain the parity contract fixes), so library_ms is null
+    # call computes any of these functions (dependent DP recurrences, a
+    # serial chain the parity contract fixes, a traceback walk), so
+    # library_ms is null
     a = table.shape[0]
     cells = Q_LEN * T_MAX * N_LIB
     k1_bound = bound(4 * (Q_LEN + T_MAX * N_LIB + a * a + 2 + N_LIB),
@@ -1027,8 +1084,14 @@ def main() -> int:
     cand = n * ia * ib * (ia + ib - 2) / 2
     k7_bound = bound(4 * n * (2 * q2 * t2 + t2 * t2 + 2 * q2)
                      + 12 * n * q2 * t2, 3 * cand + 4 * n * ia * ib)
+    # K8: the codes the walks read, m[:Q] and one dat entry per lane, the
+    # scores and the records; its first-maximum scan compares Q x B floats
+    steps = Q_LEN + T_MAX + 2
+    k8_bound = bound(k8_reads + 4 * (Q_LEN * TOP_K + TOP_K) + 4 * TOP_K
+                     + 8 * steps * TOP_K, Q_LEN * TOP_K)
     bounds = {"k1": k1_bound, "k2": k2_bound, "k3": k3_bound,
-              "k5": k5_bound, "k6": k6_bound, "k7": k7_bound}
+              "k5": k5_bound, "k6": k6_bound, "k7": k7_bound,
+              "k8": k8_bound}
     for k, bd in bounds.items():
         log(f"{k}: bound {bd['bound_ms']:.6f} ms by {bd['bound_by']} "
             f"({bd['bytes']:.4g} bytes, {bd['ops_f32']:.4g} float32 and "
@@ -1067,6 +1130,10 @@ def main() -> int:
          "replaces": "alignment_algos_tpu/ops/dp_engine.py:37",
          "also_replaces": ["alignment_algos_tpu/ops/dp_engine.py:210"],
          **row("k7"), **k7_extra},
+        {"name": "sw_decode_kernel (K8)", "route": "cuda", "source": K8_SRC,
+         "replaces": "alignment_algos_tpu/ops/swaffine.py:387",
+         **row("k8"), "shape": f"{Q_LEN}x{T_MAX}x{TOP_K}",
+         "walk_reads": k8_reads},
     ]
     log(json.dumps({"profiles_run": prof_run}))
     log(json.dumps({"dp_runs": dp_runs, "nalign_build_split_s": {

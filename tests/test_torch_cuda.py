@@ -2,7 +2,8 @@
 bit-equal to their plain PyTorch versions, run on the same card, and K1
 agrees with the numpy Gotoh oracle; K3 (general-gap DP, both modes), K5
 (HMAP similarity) and K6 (z-norm) equal their plain versions, K3 equals the
-numpy ``dp_ref`` engine and K5 + K6 equal the host ``build_costs`` S.
+numpy ``dp_ref`` engine and K5 + K6 equal the host ``build_costs`` S; K8
+(the traceback decode) equals its plain version and the numpy decode.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports only the port (no
 JAX, nothing of the JAX package), so it runs where JAX is not installed:
@@ -472,3 +473,102 @@ def test_k7_counts_launches_and_rejects_bad_input(cuda):
         dp_engine.dp_forward_tb(tabs[0].double(), *tabs[1:], **b)
     with pytest.raises(ValueError):
         dp_engine.dp_forward_tb(*tabs, **dict(b, t1=8))
+
+
+# ---------------------------------------------------- K8 (traceback decode)
+
+def _k8_inputs(q, t, b, seed):
+    """(B, Q) x (B, T) codes whose lanes cycle through eight kinds: the
+    lane's query (a walk to i = 0 and j = 0), all wall, code 19 (its table
+    row and column are negative: best score 0 without a wall), the query
+    from row 4 (to j = 0), three codes then the query (to i = 0), the query
+    less three rows (a gap in F), with three codes inserted (a gap in E),
+    random; a table with a strong diagonal and the pad wall."""
+    rng = np.random.default_rng(seed)
+    qc = rng.integers(0, 19, (b, q))
+    k = min(q, t) // 3
+
+    def fit(x):
+        x = list(x)[:t]
+        return x + list(rng.integers(0, 19, t - len(x)))
+
+    kinds = [lambda r: fit(r), lambda r: [PAD] * t, lambda r: [19] * t,
+             lambda r: fit(r[4:]),
+             lambda r: fit([*rng.integers(0, 19, 3), *r]),
+             lambda r: fit([*r[:k], *r[k + 3:]]),
+             lambda r: fit([*r[:k], *rng.integers(0, 19, 3), *r[k:]]),
+             lambda r: fit(rng.integers(0, 19, t))]
+    tc = np.asarray([kinds[n % 8](qc[n]) for n in range(b)])
+    table = np.full((21, 21), -1.0e4, np.float32)
+    table[:20, :20] = rng.integers(-4, 4, (20, 20))
+    table[np.arange(19), np.arange(19)] = 11
+    table[19, :20] = table[:20, 19] = -2
+    return qc, tc, table
+
+
+def _k8_vs_plain_and_numpy(tb, m, dat, q, t, b):
+    got = swaffine.sw_decode(tb, m, dat, q=q, t=t, b=b)
+    torch.cuda.synchronize()
+    want = swaffine.decode_tb_plain(tb, m, dat, q=q, t=t, b=b)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
+    scores, paths = swaffine.decode_local_tracebacks(
+        tb.cpu().numpy(), m.cpu().numpy(), dat.cpu().numpy(), q, t, nb=b)
+    np.testing.assert_array_equal(got[0].cpu().numpy(), scores)
+    assert swaffine._paths(got[1].cpu().numpy(), got[2].cpu().numpy(),
+                           b) == paths
+    return got
+
+
+# Q = 1, 511, 513 (K2's query chunks) and 1031, odd T, B = 1, 10, 33, 5120
+K8_SHAPES = [(1, 1, 1), (1, 9, 10), (64, 515, 1), (33, 47, 10),
+             (512, 512, 10), (511, 45, 33), (513, 39, 33), (1031, 77, 33),
+             (40, 37, 5120)]
+
+
+@pytest.mark.parametrize("gi,ge", GAPS)
+@pytest.mark.parametrize("q,t,b", K8_SHAPES)
+def test_k8_equals_plain_and_numpy(cuda, q, t, b, gi, ge):
+    qc, tc, table = _k8_inputs(q, t, b, q * 3 + t * 5 + b)
+    tb, m, dat = swaffine.sw_affine_tb(
+        *swaffine.to_device(qc, tc, table, gi, ge, cuda))
+    scores, rec_i, _ = _k8_vs_plain_and_numpy(tb, m, dat, q, t, b)
+    if b >= 3:                      # the wall and score-0 lanes stay dead
+        assert scores[1].item() == scores[2].item() == 0.0
+        assert (rec_i[:, 1:3] == -1).all()
+    if b > 1:                       # m wider than the lanes decoded
+        _k8_vs_plain_and_numpy(tb, m, dat, q, t, b - 1)
+
+
+def test_k8_offsets_past_2_31(cuda):
+    """512 x 512 x 4200: tb holds 2.2e9 bytes, and the walks that start
+    near its last anti-diagonal read offsets past 2^31."""
+    q, t, b = 512, 512, 4200
+    qc, tc, table = _k8_inputs(q, t, b, 31)
+    tb, m, dat = swaffine.sw_affine_tb(
+        *swaffine.to_device(qc, tc, table, 4.73, 0.34, cuda))
+    assert tb.numel() > 2 ** 31
+    _, rec_i, rec_j = _k8_vs_plain_and_numpy(tb, m, dat, q, t, b)
+    lanes = torch.arange(b, device=cuda, dtype=torch.int64)
+    off = (((rec_i + rec_j).long() * q + rec_i.long()) * b + lanes)
+    assert off[rec_i >= 0].max().item() >= 2 ** 31
+
+
+def test_k8_counts_launches_and_rejects_bad_input(cuda):
+    qc, tc, table = _k8_inputs(9, 11, 8, 0)
+    tb, m, dat = swaffine.sw_affine_tb(
+        *swaffine.to_device(qc, tc, table, 11.0, 1.0, cuda))
+    kw = dict(q=9, t=11, b=8)
+    n = swaffine.sw_decode.launches
+    swaffine.sw_decode(tb, m, dat, **kw)
+    swaffine.sw_decode(tb, m, dat, **dict(kw, b=3))
+    assert swaffine.sw_decode.launches == n + 2
+    with pytest.raises(ValueError):
+        swaffine.sw_decode(tb, m.cpu(), dat, **kw)
+    with pytest.raises(TypeError):
+        swaffine.sw_decode(tb, m, dat.long(), **kw)
+    with pytest.raises(ValueError):
+        swaffine.sw_decode(tb[:, :, :4].contiguous(), m, dat, **kw)
+    with pytest.raises(ValueError):
+        swaffine.sw_decode(tb, m, dat, **dict(kw, q=10))
+    assert swaffine.sw_decode.launches == n + 2

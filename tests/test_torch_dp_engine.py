@@ -212,3 +212,108 @@ def test_one_row_or_column_routes_to_dp_ref(bounds):
     got = dp_engine.build_forward(port_costs(c), q0, q1, t0, t1, device=CPU)
     assert_same(got, dp_ref.build_forward(c, q0, q1, t0, t1))
     assert (got.PQ[q1, t1], got.PT[q1, t1]) == (q0, t0)
+
+
+# ----------------------------------------------- the affine fast path's gate
+
+class _Fixed:
+    """An evaluator whose ``build_costs`` returns one fixed cost model."""
+
+    def __init__(self, costs):
+        self.costs = costs
+
+    def build_costs(self, query, templ):
+        return self.costs
+
+
+class _Len:
+    """A sequence of a given size (``DPMatrix`` asks for nothing else)."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def size(self):
+        return self.n
+
+
+def _constant_affine(base, q2, t2, gi, ge, at, s_diag, s_off):
+    """Integer constant-affine costs of ``base``'s classes (the JAX
+    package's ``scoring.base`` or the port's): S = s_diag on the main
+    diagonal and s_off elsewhere inside the sentinel border."""
+    S = np.zeros((q2, t2), np.float32)
+    S[1:-1, 1:-1] = s_off
+    d = np.arange(1, min(q2, t2) - 1)
+    S[d, d] = s_diag
+    gi_v = np.full(t2, gi, np.float32)
+    ge_v = np.full(t2, ge, np.float32)
+    D = base.affine_deletion_table(np.minimum.outer(gi_v, gi_v),
+                                   np.minimum.outer(ge_v, ge_v), at)
+    zh, zt = base.ins_zero_flags(at)
+    return base.DPCosts(S=S, D=D, A=gi_v.copy(), B=ge_v.copy(),
+                        ins_zero_head_q=zh, ins_zero_tail_q=zt,
+                        del_gi_vec=gi_v, del_ge_vec=ge_v, del_align=at)
+
+
+@pytest.mark.parametrize("gi,ge,s_off", [(3.0, 1.0, 2 ** 21 - 1),
+                                         (3.0, 1.0, 2 ** 21 - 2),
+                                         (5.0, 1.0, 2 ** 21 - 4)])
+@pytest.mark.parametrize("at", ["GLOBAL", "SEMI_LOCAL", "LOCAL"])
+def test_affine_fast_path_is_not_exact_past_2_24(at, gi, ge, s_off,
+                                                 monkeypatch):
+    """The reference's gate (``dp_affine.affine_consts``) bounds the costs,
+    max|S| + max(|gi|, |ge|)(Q + T) < 2^22, but not H: with S = 2^21 - 1
+    on a 40 x 37 matrix's diagonal H reaches 7.3e7, where float32 holds
+    only multiples of 8, and the reassociated sums of ``dp_affine`` round
+    apart from ``dp_ref``'s candidate by candidate.  The copy keeps the
+    reference's fault (H, PQ or PT differ); the port's ``DPMatrix`` bounds
+    H too and builds such a model on the general engine, equal to
+    ``dp_ref``, while the JAX package's ``DPMatrix`` keeps its behaviour."""
+    from alignment_algos_tpu.core import dp as rdp
+    from alignment_algos_tpu.scoring import base as rbase
+    from alignment_algos_tpu_torch.core import dp as tdp
+    from alignment_algos_tpu_torch.ops import dp_affine as tdp_affine
+    from alignment_algos_tpu_torch.ops import dp_ref as tdp_ref
+
+    monkeypatch.setenv("AAT_TORCH_DEVICE", "cpu")
+    q2, t2 = 40, 37
+    s_diag = 2 ** 21 - 1
+    mine = _constant_affine(tbase, q2, t2, gi, ge, tparams.AlignT[at],
+                            s_diag, s_off)
+    theirs = _constant_affine(rbase, q2, t2, gi, ge, AlignT[at], s_diag,
+                              s_off)
+    local = at == "LOCAL"
+    aff = tdp_affine.affine_consts(mine)
+    assert aff is not None                     # the reference's gate passes
+    ref = tdp_ref.build_forward(mine, 0, q2 - 1, 0, t2 - 1, local=local)
+    assert ref.H.max() > 2 ** 24
+    fast = tdp_affine.build_forward_affine(mine, 0, q2 - 1, 0, t2 - 1, *aff,
+                                           local=local)
+    assert not (np.array_equal(fast.H, ref.H)
+                and np.array_equal(fast.PQ, ref.PQ)
+                and np.array_equal(fast.PT, ref.PT))
+    assert not tdp._affine_h_exact(mine, *aff)
+    got = tdp.DPMatrix(_Len(q2), _Len(t2), _Fixed(mine),
+                       align_type=tparams.AlignT[at]).res
+    assert_same(got, ref)
+    jax_res = rdp.DPMatrix(_Len(q2), _Len(t2), _Fixed(theirs),
+                           align_type=AlignT[at]).res
+    assert_same(jax_res, fast)
+
+
+def test_affine_fast_path_still_routes_blosum_scale_models(monkeypatch):
+    """BLOSUM-scale integer costs keep the fast path, equal to dp_ref."""
+    from alignment_algos_tpu_torch.core import dp as tdp
+    from alignment_algos_tpu_torch.ops import dp_ref as tdp_ref
+
+    calls = []
+    fast = tdp.dp_affine.build_forward_affine
+    monkeypatch.setattr(tdp.dp_affine, "build_forward_affine",
+                        lambda *a, **k: calls.append(1) or fast(*a, **k))
+    rng = np.random.default_rng(6)
+    c = _constant_affine(tbase, 60, 52, 11.0, 1.0, tparams.AlignT.SEMI_LOCAL,
+                         11.0, 0.0)
+    c.S[1:-1, 1:-1] = rng.integers(-4, 12, (58, 50))
+    got = tdp.DPMatrix(_Len(60), _Len(52), _Fixed(c),
+                       align_type=tparams.AlignT.SEMI_LOCAL).res
+    assert calls == [1]
+    assert_same(got, tdp_ref.build_forward(c, 0, 59, 0, 51))

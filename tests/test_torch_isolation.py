@@ -166,11 +166,14 @@ DIFFERS = {
     # backend "torch" (K7) where the reference has "jax": BACKENDS,
     # _backend, _use_device and AUTO_MIN_SIZE for _BACKEND, _use_jax and
     # _AUTO_MIN_SIZE; build(), one build on K7 or dp_ref; DPMatrix._build
-    # routes through it; the docstring and imports say so
+    # routes through it, and takes dp_affine only where _affine_h_exact
+    # also bounds H's magnitude (the reference's gate does not: past 2^24
+    # its H, PQ and PT differ from dp_ref's, a reference fault shown by
+    # tests/test_torch_dp_engine.py); the docstring and imports say so
     "core/dp.py": ({"__doc__", "imports", "_BACKEND", "_AUTO_MIN_SIZE",
                     "set_backend", "_use_jax", "DPMatrix._build"},
                    {"BACKENDS", "AUTO_MIN_SIZE", "_backend", "_use_device",
-                    "build"}),
+                    "build", "_affine_h_exact"}),
     "cli/aaa.py": _TOOL,
     "cli/gn2.py": _TOOL,
     "cli/gnoali.py": _TOOL,

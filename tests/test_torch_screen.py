@@ -190,3 +190,171 @@ def test_cli_refuses_cuda_without_a_card(fastas, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rc, out, err = _capture(tcli.main, [*fastas, "--SUB_MATRIX", BLOSUM])
     assert rc != 0 and out == "" and "AAT_TORCH_DEVICE" in err
+
+
+def _scaled_gaps(base):
+    """A subclass of the evaluator class ``base`` that keeps its
+    ``build_costs`` but scales its gap vectors by a factor that its
+    ``__init__`` takes from the template (1, 2 or 3 by its size)."""
+
+    class ScaledGaps(base):
+        def __init__(self, params, templ):
+            super().__init__(params)
+            self.scale = np.float32(1 + templ.size() % 3)
+
+        def _gap_vectors(self, templ):
+            gi, ge = super()._gap_vectors(templ)
+            return gi * self.scale, ge * self.scale
+
+    return ScaledGaps
+
+
+def _count_device_screens(monkeypatch):
+    from alignment_algos_tpu_torch.ops import hmap_device
+    calls = []
+    real = hmap_device.screen_hmap_device
+    monkeypatch.setattr(hmap_device, "screen_hmap_device",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    return calls
+
+
+def test_screen_profiles_routes_evaluator_subclasses_per_pair(monkeypatch):
+    """An ``HMAPaliEval`` subclass with per-template state takes the host
+    per-pair build (K3's plain version here), equal to per-pair ``core/dp``
+    builds and to the JAX package's ``screen_profiles`` on the CPU; the
+    device route, which reuses the first template's evaluator, would not
+    be."""
+    from alignment_algos_tpu.parallel.screen import screen_profiles as jsp
+    from alignment_algos_tpu.scoring.hmap_eval import HMAPaliEval
+    from alignment_algos_tpu.seq.hmap import HMAPSequence
+    from alignment_algos_tpu.utils.params import HMAPaliParams
+    from alignment_algos_tpu_torch.core import dp as tdp
+    from alignment_algos_tpu_torch.ops import hmap_device
+    from alignment_algos_tpu_torch.scoring.hmap_eval import (
+        HMAPaliEval as THMAPaliEval)
+    from alignment_algos_tpu_torch.seq.hmap import (
+        HMAPSequence as THMAPSequence)
+    from alignment_algos_tpu_torch.utils.params import (
+        HMAPaliParams as THMAPaliParams)
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from make_profiles import make_profile
+
+    monkeypatch.setenv("AAT_TORCH_DEVICE", "cpu")
+    rng = np.random.default_rng(12)
+    texts = [make_profile(rng, f"s{i}", n)
+             for i, n in enumerate((34, 28, 29, 30, 29, 28))]
+    jq, *jts = [HMAPSequence.from_stream(io.StringIO(t)) for t in texts]
+    q, *ts = [THMAPSequence.from_stream(io.StringIO(t)) for t in texts]
+    assert {t.size() % 3 for t in ts} == {0, 1, 2}
+    params, jparams = THMAPaliParams(), HMAPaliParams()
+    mine, theirs = _scaled_gaps(THMAPaliEval), _scaled_gaps(HMAPaliEval)
+
+    calls = _count_device_screens(monkeypatch)
+    scores, order = screen.screen_profiles(
+        q, ts, lambda a, b: mine(params, b), k=4, device=CPU)
+    assert calls == []
+    per_pair = np.array(
+        [tdp.DPMatrix(q, t, mine(params, t)).res.H[-1, -1] for t in ts],
+        np.float32)
+    np.testing.assert_array_equal(scores.view(np.uint32),
+                                  per_pair.view(np.uint32))
+    j_scores, j_order = jsp(jq, jts, lambda a, b: theirs(jparams, b), k=4)
+    np.testing.assert_array_equal(scores.view(np.uint32),
+                                  np.asarray(j_scores).view(np.uint32))
+    np.testing.assert_array_equal(order, j_order)
+    wrong, _ = hmap_device.screen_hmap_device(
+        q, ts, params, k=4, ev=mine(params, ts[0]), device=CPU)
+    assert not np.array_equal(wrong, scores)
+
+
+@pytest.mark.parametrize("evaluator", ["HMAPaliEval", "Hmap2Eval"])
+def test_screen_profiles_routes_standard_evaluators_to_the_device(
+        evaluator, monkeypatch):
+    """Evaluators of exactly ``HMAPaliEval`` or ``Hmap2Eval`` still build
+    the similarity through ``hmap_device`` (one call per screen)."""
+    from alignment_algos_tpu_torch.scoring.gn2_eval import Gn2Params
+    from alignment_algos_tpu_torch.scoring.hmap2_eval import Hmap2Eval
+    from alignment_algos_tpu_torch.scoring.hmap_eval import HMAPaliEval
+    from alignment_algos_tpu_torch.seq.hmap import HMAPSequence
+    from alignment_algos_tpu_torch.structure.smap import SMAPSequence
+    from alignment_algos_tpu_torch.utils.params import HMAPaliParams
+
+    data = os.path.join(ROOT, "tests", "data")
+    query = HMAPSequence.from_file(os.path.join(data, "query30.prof"))
+    if evaluator == "Hmap2Eval":
+        ts = [SMAPSequence.from_file(os.path.join(data, fn), gn2=True)
+              for fn in ("templ_smap.prof", "templ_big.prof")]
+        params = Gn2Params()
+        factory = lambda a, b: Hmap2Eval(params)          # noqa: E731
+    else:
+        ts = [HMAPSequence.from_file(os.path.join(data, fn))
+              for fn in ("query_big.prof", "query30.prof")]
+        params = HMAPaliParams()
+        factory = lambda a, b: HMAPaliEval(params)        # noqa: E731
+    calls = _count_device_screens(monkeypatch)
+    scores, _ = screen.screen_profiles(query, ts, factory, k=2, device=CPU)
+    assert calls == [1] and scores.shape == (2,)
+
+
+def _index():
+    from alignment_algos_tpu_torch.cli import screen as tcli
+    from alignment_algos_tpu_torch.scoring.submatrix import BlosumMatrix
+    bl = BlosumMatrix(BLOSUM)
+    return {c: i for i, c in enumerate(bl.alphabet)}, tcli.padded_table(bl)[1]
+
+
+def test_read_inputs_encoding_equals_jax(fastas):
+    """The byte-table encode of the query and the library equals the JAX
+    tool's dict encode (cli/screen.py:62-67,133) on the fixture recipe."""
+    from alignment_algos_tpu.cli import screen as jcli
+    from alignment_algos_tpu_torch.cli import screen as tcli
+    qfa, lfa = fastas
+    inp = tcli.read_inputs(qfa, lfa, BLOSUM)
+    index, pad = _index()
+    qseq = jcli.read_fasta_plain(qfa)[0][1]
+    want_q = np.asarray([index[c] for c in qseq.upper()], dtype=np.int32)
+    want_t = jcli.encode_library([s for _, s in jcli.read_fasta_plain(lfa)],
+                                 index, pad)
+    for got, want in ((inp.q_codes, want_q), (inp.t_codes, want_t)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+    assert inp.pad_code == pad and (inp.t_codes == pad).any()
+
+
+@pytest.mark.parametrize("seqs", [
+    ["heagawghee", "PAWheaE", "w", "HEAGAWGHEEPAWHEAE"],   # lower case
+    ["W"],                                                 # 1 residue
+    ["A", "", "bzx*"],                                     # empty, B Z X *
+    ["HEıAG", "AAA"],                   # dotless i: upper() gives I
+], ids=["lower_case", "one_residue", "empty_and_ambiguity", "dotless_i"])
+def test_byte_table_encode_equals_jax(seqs):
+    from alignment_algos_tpu.cli import screen as jcli
+    from alignment_algos_tpu_torch.cli import screen as tcli
+    index, pad = _index()
+    got = tcli.encode_library(seqs, index, pad)
+    want = jcli.encode_library(seqs, index, pad)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    for s in seqs:                           # the query's encoding
+        np.testing.assert_array_equal(
+            tcli.encode_library([s], index, pad)[0],
+            np.asarray([index[c] for c in s.upper()], dtype=np.int32))
+
+
+@pytest.mark.parametrize("seqs", [
+    ["HEAG", "HEJAG", "AOA"],                # J first: outside BLOSUM62
+    ["HEAG", "café"],                   # non-ASCII
+    ["AßA"],                            # upper() lengthens the row
+    ["AA\0A"],                               # a NUL byte
+], ids=["unknown_residue", "non_ascii", "longer_upper", "nul"])
+def test_byte_table_encode_raises_as_jax(seqs):
+    from alignment_algos_tpu.cli import screen as jcli
+    from alignment_algos_tpu_torch.cli import screen as tcli
+    index, pad = _index()
+    errors = []
+    for encode in (jcli.encode_library, tcli.encode_library):
+        with pytest.raises(Exception) as e:
+            encode(seqs, index, pad)
+        errors.append((type(e.value), e.value.args))
+    assert errors[0] == errors[1]
+    assert errors[0][0] is (ValueError if "ß" in seqs[0] else KeyError)

@@ -171,3 +171,118 @@ def test_device_from_env(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):      # cuda by default, never the CPU
         torchenv.device_from_env()
+
+
+# ------------------------------------------------ K8's plain version (decode)
+
+def _decode_inputs(q, t, seed):
+    """8 lanes for the traceback walk, (B, Q) x (B, T) codes and a table
+    with a strong diagonal: 0 all wall; 1 code 19, whose row and column of
+    the table are negative (best score 0 without a wall); 2 the query
+    (the walk reaches i = 0 and j = 0); 3 the query from row 4 (it reaches
+    j = 0); 4 three codes, then the query (it reaches i = 0); 5 the query
+    less 3 rows (a gap in F); 6 the query with 3 codes inserted (a gap in
+    E); 7 random."""
+    rng = np.random.default_rng(seed)
+    qc = rng.integers(0, 19, q)
+
+    def fit(x):
+        x = list(x)[:t]
+        return x + list(rng.integers(0, 19, t - len(x)))
+
+    k = min(q, t) // 3
+    lanes = [[PAD] * t, [19] * t, fit(qc), fit(qc[4:]),
+             fit([*rng.integers(0, 19, 3), *qc]),
+             fit([*qc[:k], *qc[k + 3:]]),
+             fit([*qc[:k], *rng.integers(0, 19, 3), *qc[k:]]),
+             fit(rng.integers(0, 19, t))]
+    table = np.full((21, 21), -1.0e4, np.float32)
+    table[:20, :20] = rng.integers(-4, 4, (20, 20))
+    table[np.arange(19), np.arange(19)] = 11
+    table[19, :20] = table[:20, 19] = -2
+    return (np.broadcast_to(qc, (8, q)).astype(np.int32),
+            np.asarray(lanes, np.int32), table)
+
+
+def _jax_decode(tb, m, dat, q, t, b):
+    return tuple(np.asarray(x) for x in jsw._decode_tb_device(
+        jnp.asarray(np.asarray(tb)), jnp.asarray(np.asarray(m)),
+        jnp.asarray(np.asarray(dat)), q=q, t=t, b=b))
+
+
+@pytest.mark.parametrize("gi,ge", GAPS)
+@pytest.mark.parametrize("q,t", [(12, 30), (30, 12), (13, 29)])
+def test_decode_plain_equals_jax_arrays(q, t, gi, ge):
+    """decode_tb_plain and the wrapper's CPU route return the JAX
+    ``_decode_tb_device`` arrays (scores, rec_i, rec_j) on the same codes,
+    position for position."""
+    qc, tc, table = _decode_inputs(q, t, q * 31 + t)
+    b = tc.shape[0]
+    tb, m, dat = swaffine.sw_affine_tb(
+        *swaffine.to_device(qc, tc, table, gi, ge, CPU))
+    want = _jax_decode(tb, m, dat, q, t, b)
+    for got in (swaffine.decode_tb_plain(tb, m, dat, q=q, t=t, b=b),
+                swaffine.sw_decode(tb, m, dat, q=q, t=t, b=b)):
+        assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+        assert got[1].shape == got[2].shape == (q + t + 2, b)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w)
+    scores, rec_i, rec_j = want
+    assert scores[0] == scores[1] == 0.0 and (scores[2:] > 0).all()
+    assert (rec_i[:, :2] == -1).all() and (rec_j[:, :2] == -1).all()
+    hit = [set(zip(rec_i[:, n].tolist(), rec_j[:, n].tolist())) - {(-1, -1)}
+           for n in range(b)]
+    assert (0, 0) in hit[2]
+    assert any(j == 0 for _, j in hit[3]) and any(i == 0 for i, _ in hit[4])
+    # the walks cross gaps: a lane's matches skip a row or a column
+    assert any(len(h) < (max(h)[0] - min(h)[0] + 1) for h in hit[5:7])
+    assert any(len(h) < (max(h, key=lambda p: p[1])[1]
+                         - min(h, key=lambda p: p[1])[1] + 1)
+               for h in hit[5:7])
+
+
+@pytest.mark.parametrize("gi,ge", GAPS)
+def test_decode_plain_on_padded_jax_arrays(gi, ge):
+    """The JAX twin's padded tb (D, Qp, Bp) and m, dat (Qp, Bp): rows past
+    q and lanes past b are read by neither decoder."""
+    q, t = 21, 17
+    qc, tc, table = _decode_inputs(q, t, 5)
+    b = tc.shape[0]
+    jtb, jm, jdat = (np.array(x) for x in jsw.sw_affine_tb_xla(
+        _jax_sd(qc, tc, table), jnp.array([[gi, ge]], jnp.float32), q=q,
+        t=t))
+    assert jm.shape[0] > q and jm.shape[1] > b
+    want = _jax_decode(jtb, jm, jdat, q, t, b)
+    got = swaffine.decode_tb_plain(*(torch.from_numpy(x)
+                                     for x in (jtb, jm, jdat)),
+                                   q=q, t=t, b=b)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    s_host, p_host = swaffine.decode_local_tracebacks(jtb, jm, jdat, q, t,
+                                                      nb=b)
+    np.testing.assert_array_equal(s_host, want[0])
+    assert p_host == swaffine._paths(want[1], want[2], b)
+
+
+def test_decode_cpu_route_counts_no_launch_and_checks_inputs():
+    qc, tc, table = _decode_inputs(9, 11, 2)
+    tb, m, dat = swaffine.sw_affine_tb(
+        *swaffine.to_device(qc, tc, table, 11.0, 1.0, CPU))
+    kw = dict(q=9, t=11, b=8)
+    n = swaffine.sw_decode.launches
+    swaffine.sw_decode(tb, m, dat, **kw)
+    swaffine.sw_decode(tb, m, dat, **dict(kw, b=5))          # m wider than b
+    assert swaffine.sw_decode.launches == n
+    with pytest.raises(TypeError):
+        swaffine.sw_decode(tb.int(), m, dat, **kw)
+    with pytest.raises(TypeError):
+        swaffine.sw_decode(tb, m.double(), dat, **kw)
+    with pytest.raises(ValueError):
+        swaffine.sw_decode(tb, m, dat[:, :7].contiguous(), **kw)
+    with pytest.raises(ValueError):
+        swaffine.sw_decode(tb, m.t(), dat, **kw)              # not contiguous
+    with pytest.raises(ValueError):
+        swaffine.sw_decode(tb, m.to("meta"), dat, **kw)       # device
+    for bad in (dict(kw, q=10), dict(kw, b=9), dict(kw, t=0)):
+        with pytest.raises(ValueError):
+            swaffine.sw_decode(tb, m, dat, **bad)

@@ -11,7 +11,8 @@ templates of 64-512 residues, padded to 512.
 1. Replays the CLI's stages one by one, with ``torch.cuda.synchronize()``
    after each, ``--repeats`` times at both gap settings (the first repeat
    is cold): FASTA read + encoding, host -> device, K1, top-k, K2, the
-   device decode loop, ``area_matrix``, UPGMA.
+   decode (K8, then the records' pull and the host path extraction; the
+   two together as ``decode``), ``area_matrix``, UPGMA.
 2. Runs the whole CLI once more under ``torch.profiler`` at each gap
    setting and reports wall, device-busy seconds (the union of the
    device-side events' intervals: kernels, copies, fills), idle share,
@@ -87,9 +88,14 @@ def replay(qfa, lfa, blosum, gi, ge, dev):
     tb, m, dat = sw.sw_affine_tb(*k2_in)
     t6 = sync()
     st["K2"] = t6 - t5
-    _, paths = sw.decode_local_tracebacks_device(tb, m, dat, len(q),
-                                                 t.shape[1], nb=len(idx))
+    # decode_local_tracebacks_device's two steps, timed apart
+    _, rec_i, rec_j = sw.sw_decode(tb, m, dat, q=len(q), t=t.shape[1],
+                                   b=len(idx))
+    t6k = sync()
+    st["K8"] = t6k - t6
+    paths = sw._paths(rec_i.cpu().numpy(), rec_j.cpu().numpy(), len(idx))
     t7 = sync()
+    st["pull + paths"] = t7 - t6k
     st["decode"] = t7 - t6
     tl = (hits != pad).sum(axis=1)
     vrps = [[ResPair(0, 0)] + [ResPair(a + 1, b + 1) for a, b in p]

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""K1 and K2 at the FASTA main path's shapes on one NVIDIA GPU.
+"""K1, K2 and the decode at the FASTA main path's shapes on one NVIDIA GPU.
 
     python3 tools/torch_sw_bench.py [--root DIR] [--reps 5]
 
@@ -9,7 +9,10 @@ padded to 512, and of ``sw_affine_tb`` (K2) on the top 10 of them, at the
 gaps 4.73/0.34 and 11/1, on ``chip_smoke.py``'s seeded library: through
 the wrappers as the main path calls them (``k1_ms``, ``k2_ms``: input
 checks with one host sync, output allocation, launch) and the launch alone
-on preallocated outputs (``k1_kernel_ms``, ``k2_kernel_ms``).
+on preallocated outputs (``k1_kernel_ms``, ``k2_kernel_ms``); and the
+decode of K2's codes into paths, ``decode_local_tracebacks_device`` with
+its pull and host path extraction (``decode_ms``), which any version of
+the port has, so that two versions' decodes compare.
 
 ``--root DIR`` imports the port from another checkout, for example the
 parent commit unpacked with ``git archive``, so that two versions are timed
@@ -47,7 +50,8 @@ def main() -> int:
     dev = torch.device("cuda")
     built = _build.load()
     res = {"root": root, "card": cs.card_line(), "nvcc_s": built.seconds,
-           "k1_ms": {}, "k2_ms": {}, "k1_kernel_ms": {}, "k2_kernel_ms": {}}
+           "k1_ms": {}, "k2_ms": {}, "k1_kernel_ms": {}, "k2_kernel_ms": {},
+           "decode_ms": {}}
     blosum = os.path.join(root, "tests", "data", "BLOSUM62")
     with tempfile.TemporaryDirectory() as d:
         qfa, lfa, _ = cs.make_fastas(d)
@@ -71,6 +75,9 @@ def main() -> int:
         res["k2_kernel_ms"][key] = cs.cuda_ms(
             lambda: sw._launch("sw_tb_launch", qh, th, tab, gap, *th.shape,
                                *outs), args.reps)
+        res["decode_ms"][key] = cs.cuda_ms(
+            lambda: sw.decode_local_tracebacks_device(
+                *outs, len(q), th.shape[0], nb=cs.TOP_K), args.reps)
     res["k1_shape_q_t_b"] = [len(q), *td.shape]
     res["k2_shape_q_t_b"] = [len(q), *th.shape]
     print(json.dumps(res))
