@@ -43,8 +43,7 @@ SIGNATURES = {
                      _P),
     "sw_decode_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _P),
-    "dp_general_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _P),
+    "dp_general_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "dp_tb_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _I, _P),
     "hmap_sim_launch": (_P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I,

@@ -6,8 +6,8 @@ step; here K3 (:func:`.dp_scores.dp_general`) computes the same function
 and its full-H mode returns H.  The cost tables are built on the host
 exactly as the JAX package builds them (:func:`_host_tables`, a numpy
 copy), so the H matrices are bit-identical to ``dp_ref`` / ``dp_engine``.
-There is no ``supported()`` gate and no ``MAX_VMEM_SIDE``: K3 takes a pair
-of any length.
+There is no ``supported()`` gate and no ``MAX_VMEM_SIDE``: K3's table form
+takes t2 up to 19,200 (its rows in shared memory).
 """
 
 from __future__ import annotations

@@ -22,8 +22,9 @@ parallel), so the plain version is a loop of float32 adds, vectorized only
 across pairs.  Its divisions divide by a tensor, never by a Python or CPU
 scalar: PyTorch's CUDA division multiplies by the reciprocal of a CPU
 scalar, which is not the correctly rounded quotient.  Then K3
-(``dp_scores``) scores every length bucket.  There
-is no VMEM cap and no host fallback: every bucket goes producer -> K3.
+(``dp_scores.dp_general_ragged``) scores every bucket of the library in one
+launch, its costs built in the kernel from the gap vectors.  There is no
+VMEM cap and no host fallback: every bucket goes producer -> K3.
 """
 
 from __future__ import annotations
@@ -40,10 +41,10 @@ from .expf import expf_plain
 
 __all__ = ["DeviceLibrary", "HMAPaliEval", "HMAPaliParams",
            "bucket_tables", "build_similarity_device", "hmap_sim",
-           "hmap_sim_plain", "query_tensors",
+           "hmap_sim_plain", "query_tensors", "ragged_flags",
            "hmap_znorm", "hmap_znorm_plain", "pack_sequence",
-           "pack_template_costs", "screen_hmap_device", "serial_sums",
-           "sqrt_rn"]
+           "pack_template_costs", "screen_buckets", "screen_hmap_device",
+           "serial_sums", "sqrt_rn"]
 
 
 # ------------------------------------------------------- host-side packing
@@ -334,21 +335,41 @@ def query_tensors(query, device: torch.device) -> dict:
     return {key: _to(v, device) for key, v in pack_sequence(query).items()}
 
 
-def bucket_tables(qt: dict, b: dict, params):
-    """K3's six input tensors for one length bucket: K5 and K6 build S on
-    the bucket's device, then ``dp_scores.prepare_tables`` rebuilds D from
-    the gap vectors and builds the insertion tables there.  ``qt`` is
-    :func:`query_tensors`, ``b`` a :class:`DeviceLibrary` bucket."""
-    at = AlignT(params.align_type)
-    zh, zt = ins_zero_flags(at)
-    S = build_similarity_device(
+def _similarity(qt: dict, b: dict, params) -> torch.Tensor:
+    """K5 then K6 for one bucket (``b`` a :class:`DeviceLibrary` bucket,
+    ``qt`` :func:`query_tensors`)."""
+    return build_similarity_device(
         qt["aa"], qt["zsse"], qt["conf"], b["aa"], b["zsse"], b["conf"],
         float(np.float32(params.alpha)), float(-np.float32(params.zero_shift)),
         normalize=bool(params.normalize_mtx))
+
+
+def ragged_flags(params) -> dict:
+    """K3's cost flags of the HMAP path for ``params.align_type``."""
+    at = AlignT(params.align_type)
+    zh, zt = ins_zero_flags(at)
+    return dict(zero_head=zh, zero_tail=zt, off=2,
+                del_free=at in _DEL_FREE_OVERHANG_MODES)
+
+
+def screen_buckets(qt: dict, library: "DeviceLibrary", params) -> list:
+    """K3's ragged input for the whole library: per bucket (S, D, A, B,
+    None), S from K5 and K6 on the library's device (launched per bucket,
+    no host sync); ``dp_scores.dp_general_ragged`` takes the list with
+    :func:`ragged_flags`."""
+    return [(_similarity(qt, b, params), b["D"], b["A"], b["B"], None)
+            for b in library.buckets.values()]
+
+
+def bucket_tables(qt: dict, b: dict, params):
+    """K3's six table-form tensors for one length bucket: K5 and K6 build
+    S, then ``dp_scores.prepare_tables`` rebuilds D from the gap vectors
+    and builds the insertion tables there (the input of
+    ``dp_scores.dp_general``)."""
+    f = ragged_flags(params)
     return dp_scores.prepare_tables(
-        S, b["D"], b["A"], b["B"], torch.zeros_like(b["A"]), zero_head=zh,
-        zero_tail=zt, off=2, has_c=False, vec_d=True,
-        del_free=at in _DEL_FREE_OVERHANG_MODES)
+        _similarity(qt, b, params), b["D"], b["A"], b["B"],
+        torch.zeros_like(b["A"]), has_c=False, vec_d=True, **f)
 
 
 def screen_hmap_device(query, templates, params, k: int = 10,
@@ -358,8 +379,9 @@ def screen_hmap_device(query, templates, params, k: int = 10,
     on ``device``; scores bit-identical to the JAX package's
     ``screen_profiles`` with an ``HMAPaliEval`` factory.
 
-    Per length bucket: :func:`bucket_tables` (K5, K6, the cost tables) and
-    K3.  Returns (scores float32 (N,), top-k indices, score descending then
+    K5 and K6 per length bucket (:func:`screen_buckets`), then K3 once
+    over the whole library and one copy of the scores to the host.
+    Returns (scores float32 (N,), top-k indices, score descending then
     index ascending)."""
     device = torch.device(device)
     if ev is None:
@@ -367,9 +389,10 @@ def screen_hmap_device(query, templates, params, k: int = 10,
     if library is None:
         library = DeviceLibrary(templates, ev, device=device)
     qt = query_tensors(query, device)
+    out = dp_scores.dp_general_ragged(screen_buckets(qt, library, params),
+                                      **ragged_flags(params))
     scores = np.zeros(len(library.templates), np.float32)
-    for b in library.buckets.values():
-        tables = bucket_tables(qt, b, params)
-        scores[b["idx"]] = dp_scores.dp_general(*tables).cpu().numpy()
+    scores[[i for b in library.buckets.values() for i in b["idx"]]] = \
+        out.cpu().numpy()
     order = np.lexsort((np.arange(len(scores)), -scores))[:k]
     return scores, order

@@ -42,9 +42,15 @@
    must rank 1-8; K3, K5 and K6 must launch), the same CLI on the first 64
    templates on the card and with ``AAT_TORCH_DEVICE=cpu`` (byte-equal
    stdout), and ``--smap 1`` on the repository's SMAP fixtures on the card
-   and on the CPU (byte-equal stdout).  Times K3 on a full bucket and on a
-   64-pair 258 x 258 batch, and K5 + K6 on a full bucket, each against its
-   plain version.
+   and on the CPU (byte-equal stdout).  The screen launches K3 once, over
+   the whole library (its ragged wrapper, the costs built in the kernel
+   from the gap vectors), and K5 and K6 once per length bucket: the run
+   fails on other counts.  K3's whole-library launch is held against its
+   plain version bit for bit (an int32 view, NaN at the same places), as
+   are all K3 comparisons.  Times K3 on the whole library (beside its
+   bound), on a full bucket and on a 64-pair 258 x 258 batch (each as a
+   ragged launch and in the table form), and K5 + K6 on a full bucket,
+   each against its plain version.
 6. The exact DP builds behind the alignment tools.  Holds K7 (H, PQ and PT)
    against its plain version on odd shapes, three sub-rectangles, a
    bounded 130 x 97 build and a 386 x 404 pair, on random, Gn2-style,
@@ -462,10 +468,33 @@ def same(a, b) -> bool:
             and torch.equal(torch.where(na, 0.0, a), torch.where(nb, 0.0, b)))
 
 
-def random_dp_tables(ds, rng, n, q2, t2, dev, *, vec_d: bool):
-    """K3 inputs from random data: HMAP-style gap vectors rebuilt into D on
-    the device (SEMI_LOCAL: zeroed overhangs and ins_zero flags), or a
-    Gn2-style full D with a C term."""
+def same_bits(a, b) -> bool:
+    """Tolerance 0 as float32 bits: NaN at the same places, every other
+    value equal as int32 (so -0.0 != +0.0: a reordered max shows)."""
+    import torch
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return (a.shape == b.shape and torch.equal(na, nb)
+            and torch.equal(torch.where(na, 0.0, a).view(torch.int32),
+                            torch.where(nb, 0.0, b).view(torch.int32)))
+
+
+def k3_work(shapes) -> tuple:
+    """K3's bytes and float32 operations on the vector form for buckets of
+    (n, q2, t2): S and the four cost vectors read once, one score written;
+    a subtract and a max per gap candidate (both kinds, the triangles the
+    recurrence scans), six operations per interior cell."""
+    nbytes = ops = 0.0
+    for n, q2, t2 in shapes:
+        ia, ib = q2 - 3, t2 - 3              # interior rows and columns
+        nbytes += 4 * n * (q2 * t2 + 4 * t2 + 1)
+        ops += n * ia * ib * (ia + ib - 2) + 6 * n * ia * ib
+    return nbytes, ops
+
+
+def random_dp_inputs(rng, n, q2, t2, dev, *, vec_d: bool):
+    """Per-pair K3 data from random numbers, on ``dev``: S with zero
+    borders, HMAP-style gap vectors (n, 2, t2) or a Gn2-style full D, A, B
+    and a C term."""
     import torch
     S = (rng.standard_normal((n, q2, t2)) * 2.0).astype(np.float32)
     S[:, [0, -1], :] = 0.0
@@ -477,9 +506,17 @@ def random_dp_tables(ds, rng, n, q2, t2, dev, *, vec_d: bool):
     A = np.minimum(gi, np.roll(gi, 1, axis=1))
     B = np.minimum(ge, np.roll(ge, 1, axis=1))
     C = rng.normal(0.0, 1.0, (n, t2)).astype(np.float32)
-    t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-         for x in (S, D, A, B, C)]
-    return ds.prepare_tables(*t, zero_head=vec_d, zero_tail=vec_d, off=2,
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (S, D, A, B, C)]
+
+
+def random_dp_tables(ds, rng, n, q2, t2, dev, *, vec_d: bool):
+    """K3's table-form inputs from :func:`random_dp_inputs`: the gap
+    vectors rebuilt into D on the device (SEMI_LOCAL: zeroed overhangs and
+    ins_zero flags), or the full D with the C term."""
+    return ds.prepare_tables(*random_dp_inputs(rng, n, q2, t2, dev,
+                                               vec_d=vec_d),
+                             zero_head=vec_d, zero_tail=vec_d, off=2,
                              has_c=not vec_d, vec_d=vec_d, del_free=vec_d)
 
 
@@ -500,8 +537,8 @@ def check_profile_kernels(dev, qfn, lib_dir, homologs, cli):
                 got = ds.dp_general(*tabs, local=local, full_h=full_h)
                 want = ds.dp_general_plain(*tabs, local=local, full_h=full_h)
                 torch.cuda.synchronize()
-                assert same(got, want), f"K3 != plain: {tag} local={local} " \
-                    f"full_h={full_h}"
+                assert same_bits(got, want), f"K3 != plain: {tag} " \
+                    f"local={local} full_h={full_h}"
                 err["k3"] = max(err["k3"], max_abs(got, want))
 
     # (2, 802, 770): past the TPU kernels' VMEM cap; the port has no cliff
@@ -533,6 +570,29 @@ def check_profile_kernels(dev, qfn, lib_dir, homologs, cli):
                     f"HMAP bucket {len(b['idx'])}x{query.size()}x{t2}")
         log(f"K3 equals plain on the HMAP bucket t2={t2} "
             f"({len(b['idx'])} pairs, q2={query.size()})")
+
+    # the main path's K3 input: the whole library in one ragged launch, the
+    # costs built in the kernel from the gap vectors; the plain version
+    # (per bucket, the tables then the row loop) timed on its one run
+    buckets = hd.screen_buckets(qt, library, params)
+    flags = hd.ragged_flags(params)
+    got = ds.dp_general_ragged(buckets, **flags)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = ds.dp_general_ragged_plain(buckets, **flags)
+    stop.record()
+    torch.cuda.synchronize()
+    screen_plain_ms = start.elapsed_time(stop)
+    assert same_bits(got, want), "K3 != plain on the whole library"
+    err["k3"] = max(err["k3"], max_abs(got, want))
+    screen_shapes = [tuple(S.shape) for S, *_ in buckets]
+    screen_scores, n_pairs = got, len(got)
+    log(f"K3 equals plain bit for bit on the whole library in one ragged "
+        f"launch ({n_pairs} pairs, {len(buckets)} buckets, t2 "
+        f"{min(s[2] for s in screen_shapes)}-"
+        f"{max(s[2] for s in screen_shapes)})")
 
     # the independent engine: dp_ref (numpy / its native build) on 2
     # pairs, a homolog and the longest template
@@ -583,14 +643,38 @@ def check_profile_kernels(dev, qfn, lib_dir, homologs, cli):
     log(f"K5 + K6 S equals host HMAPaliEval.build_costs S bit for bit on "
         f"{host_checked} templates")
 
-    # times: one full bucket, a 64-pair 258 x 258 batch, K5 + K6
+    # times: the whole-screen ragged launch; one full bucket and a 64-pair
+    # 258 x 258 batch, each as a ragged launch and in the table form; K5 + K6
+    k3_ms = cuda_ms(lambda: ds.dp_general_ragged(buckets, **flags), 5)
+    # the launch alone, its descriptors built once (the wrapper's checks
+    # and descriptors take a few ms of host time per call)
+    scratch = torch.empty((sum(S.numel() for S, *_ in buckets),),
+                          dtype=torch.float32, device=dev)
+    pairs = ds._ragged_descriptors(buckets, scratch)
+    scores = torch.empty((len(pairs),), dtype=torch.float32, device=dev)
+    times = {"launch_ms": cuda_ms(lambda: ds._launch(
+        pairs, scores, vec=True, local=False, **flags), 5)}
+    assert same_bits(scores, screen_scores), \
+        "K3 launch alone != the wrapper's"
     b = library.buckets[near]
+    one = [bk for bk, t2 in zip(buckets, library.buckets) if t2 == near]
     tabs = hd.bucket_tables(qt, b, params)
-    k3_ms = cuda_ms(lambda: ds.dp_general(*tabs), 5)
-    k3_plain_ms = cuda_ms(lambda: ds.dp_general_plain(*tabs), 1)
-    big = random_dp_tables(ds, rng, 64, 258, 258, dev, vec_d=True)
-    k3_64_ms = cuda_ms(lambda: ds.dp_general(*big), 3)
-    k3_64_plain_ms = cuda_ms(lambda: ds.dp_general_plain(*big), 1)
+    times.update({
+        "bucket_ragged_ms": cuda_ms(
+            lambda: ds.dp_general_ragged(one, **flags), 5),
+        "bucket_table_ms": cuda_ms(lambda: ds.dp_general(*tabs), 5),
+        "bucket_plain_ms": cuda_ms(lambda: ds.dp_general_plain(*tabs), 1)})
+    # 64 pairs of 258 x 258, SEMI_LOCAL's flags (the screen's)
+    S, G, A, B, C = random_dp_inputs(rng, 64, 258, 258, dev, vec_d=True)
+    big = [(S, G, A, B, None)]
+    big_tabs = ds.prepare_tables(S, G, A, B, C, has_c=False, vec_d=True,
+                                 **flags)
+    times.update({
+        "64x258x258_ragged_ms": cuda_ms(
+            lambda: ds.dp_general_ragged(big, **flags), 3),
+        "64x258x258_table_ms": cuda_ms(lambda: ds.dp_general(*big_tabs), 3),
+        "64x258x258_plain_ms": cuda_ms(
+            lambda: ds.dp_general_plain(*big_tabs), 1)})
     args = (qt["aa"], qt["zsse"], qt["conf"], b["aa"], b["zsse"], b["conf"],
             alpha)
     raw = hd.hmap_sim(*args)
@@ -599,36 +683,56 @@ def check_profile_kernels(dev, qfn, lib_dir, homologs, cli):
     k6_ms = cuda_ms(lambda: hd.hmap_znorm(raw, shift), 5)
     k6_plain_ms = cuda_ms(lambda: hd.hmap_znorm_plain(raw, shift), 1)
     shape = f"{len(b['idx'])}x{query.size()}x{near}"
-    log(f"K3 {k3_ms:.3f} ms vs plain {k3_plain_ms:.3f} ms on the bucket "
-        f"{shape}; {k3_64_ms:.3f} ms vs plain {k3_64_plain_ms:.3f} ms on "
-        f"64x258x258")
+    screen_bound = bound(*k3_work(screen_shapes))
+    log(f"K3 whole screen ({n_pairs} pairs, one launch): {k3_ms:.3f} ms "
+        f"through the wrapper, {times['launch_ms']:.3f} ms the launch alone, "
+        f"bound {screen_bound['bound_ms']:.3f} ms "
+        f"({screen_bound['bound_by']}), plain {screen_plain_ms:.3f} ms")
+    log(f"K3 on the bucket {shape}: ragged {times['bucket_ragged_ms']:.3f} "
+        f"ms, table form {times['bucket_table_ms']:.3f} ms, plain "
+        f"{times['bucket_plain_ms']:.3f} ms; on 64x258x258: ragged "
+        f"{times['64x258x258_ragged_ms']:.3f} ms, table form "
+        f"{times['64x258x258_table_ms']:.3f} ms, plain "
+        f"{times['64x258x258_plain_ms']:.3f} ms")
     log(f"K5 {k5_ms:.3f} ms vs plain {k5_plain_ms:.3f} ms, K6 {k6_ms:.3f} "
         f"ms vs plain {k6_plain_ms:.3f} ms on {shape}")
-    return ({"k3": (err["k3"], k3_ms, k3_plain_ms),
+    return ({"k3": (err["k3"], k3_ms, screen_plain_ms),
              "k5": (err["k5"], k5_ms, k5_plain_ms),
              "k6": (err["k6"], k6_ms, k6_plain_ms)},
             {"bucket": shape, "dims": (len(b["idx"]), query.size(), near),
-             "k3_64x258x258_ms": k3_64_ms,
-             "k3_64x258x258_plain_ms": k3_64_plain_ms})
+             "screen_shapes": screen_shapes,
+             "screen": f"{n_pairs} pairs in {len(buckets)} buckets, "
+                       f"q2={query.size()}",
+             "k3_times": times})
 
 
 def run_profile_screens(cli, d, qfn, lib_dir, files, homologs, card):
     """Phase 5's CLI runs; returns the K3/K5/K6 launch counts of the
-    1024-template ``--profiles 1`` run (each set to 0 just before it)."""
+    1024-template ``--profiles 1`` run (each set to 0 just before it).  K3
+    has two wrappers, the ragged one (the screen's) and the table form's
+    (``--smap 1``); its count is their sum."""
     from alignment_algos_tpu_torch.ops import dp_scores as ds
     from alignment_algos_tpu_torch.ops import hmap_device as hd
 
-    counters = (ds.dp_general, hd.hmap_sim, hd.hmap_znorm)
+    def k3_launches():
+        return ds.dp_general_ragged.launches + ds.dp_general.launches
+
+    counters = (ds.dp_general_ragged, ds.dp_general, hd.hmap_sim,
+                hd.hmap_znorm)
     query, templates, _ = cli.read_profiles(qfn, lib_dir)
     q2 = query.size()
     evals = sum(q2 * t.size() * (q2 + t.size()) for t in templates)
+    n_buckets = len({t.size() for t in templates})
     for fn in counters:
         fn.launches = 0
     out, wall = run_cli(cli.main, [qfn, lib_dir, "--profiles", "1",
                                    "--top_k", str(TOP_K)])
-    launches = {"k3": ds.dp_general.launches, "k5": hd.hmap_sim.launches,
+    launches = {"k3": k3_launches(), "k5": hd.hmap_sim.launches,
                 "k6": hd.hmap_znorm.launches}
-    assert all(v > 0 for v in launches.values()), launches
+    # one K3 launch per screen, the ragged one; K5 and K6 once per bucket
+    assert (ds.dp_general_ragged.launches, ds.dp_general.launches) == (1, 0), \
+        launches
+    assert launches["k5"] == launches["k6"] == n_buckets, launches
     rows = rows_of(out)
     assert len(rows) == TOP_K, out
     assert {r[3] for r in rows[:N_HOMOLOGS]} == set(homologs), rows
@@ -656,9 +760,9 @@ def run_profile_screens(cli, d, qfn, lib_dir, files, homologs, card):
             ("--smap 1, the SMAP fixtures",
              [os.path.join(data, "query30.prof"), smaps, "--smap", "1",
               "--top_k", "2"])):
-        before = ds.dp_general.launches
+        before = k3_launches()
         gpu, gpu_wall = run_cli(cli.main, argv)
-        assert ds.dp_general.launches > before, f"{tag}: K3 never launched"
+        assert k3_launches() > before, f"{tag}: K3 never launched"
         device = os.environ["AAT_TORCH_DEVICE"]
         os.environ["AAT_TORCH_DEVICE"] = "cpu"
         try:
@@ -1069,11 +1173,9 @@ def main() -> int:
     k2_bound = bound(4 * (Q_LEN * TOP_K + T_MAX * TOP_K + a * a + 2)
                      + (Q_LEN + T_MAX - 1) * Q_LEN * TOP_K
                      + 8 * Q_LEN * TOP_K, 16 * cells)
+    # K3: the main path's launch, the whole library
+    k3_bound = bound(*k3_work(prof_extra["screen_shapes"]))
     n, q2, t2 = prof_extra["dims"]
-    ia, ib = q2 - 3, t2 - 3                  # interior rows and columns
-    cand = n * ia * ib * (ia + ib - 2) / 2   # gap candidates, both kinds
-    k3_bound = bound(4 * n * (2 * q2 * t2 + t2 * t2 + 2 * q2 + t2 + 1),
-                     2 * cand + 6 * n * ia * ib)
     inner = n * (q2 - 2) * (t2 - 2)
     ka, ks = 20, 3                           # profile and SSE widths
     k5_bound = bound(4 * ((q2 + n * t2) * (ka + ks + 1) + n * q2 * t2),
@@ -1117,9 +1219,8 @@ def main() -> int:
         {"name": "dp_general_kernel (K3)", "route": "cuda", "source": K3_SRC,
          "replaces": "alignment_algos_tpu/ops/dp_scores.py:62",
          "also_replaces": ["alignment_algos_tpu/ops/dp_pallas.py:67"],
-         **row("k3"), "shape": prof_extra["bucket"],
-         "ms_64x258x258": prof_extra["k3_64x258x258_ms"],
-         "plain_ms_64x258x258": prof_extra["k3_64x258x258_plain_ms"]},
+         **row("k3"), "shape": prof_extra["screen"],
+         "bucket": prof_extra["bucket"], **prof_extra["k3_times"]},
         {"name": "hmap_sim_kernel (K5)", "route": "cuda", "source": K56_SRC,
          "replaces": "alignment_algos_tpu/ops/hmap_device.py:137",
          **row("k5"), "shape": prof_extra["bucket"]},

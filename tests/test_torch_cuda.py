@@ -201,6 +201,15 @@ def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
             and torch.equal(torch.where(na, 0.0, a), torch.where(nb, 0.0, b)))
 
 
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Tolerance 0 as float32 bits: NaN at the same places, every other
+    value equal as int32 (so -0.0 != +0.0: a reordered max shows)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return (a.shape == b.shape and torch.equal(na, nb)
+            and torch.equal(torch.where(na, 0.0, a).view(torch.int32),
+                            torch.where(nb, 0.0, b).view(torch.int32)))
+
+
 def _dp_tables(rng, n, q2, t2, dev, *, vec_d, with_c, align, zero):
     """K3 inputs from random per-pair data: S with zero borders, gap
     vectors (vec_d: rebuilt into D on the device) or a full random D, A/B
@@ -242,7 +251,127 @@ def test_k3_equals_plain(cuda, n, q2, t2, vec_d, local):
         got = dp_scores.dp_general(*tabs, local=local, full_h=full_h)
         torch.cuda.synchronize()
         want = dp_scores.dp_general_plain(*tabs, local=local, full_h=full_h)
-        assert _same(got, want), (full_h, (got - want).abs().max())
+        assert _same_bits(got, want), (full_h, (got - want).abs().max())
+
+
+# the ragged (vector-form) launch: flag sets of SEMI_LOCAL (ins_zero flags
+# and free deletion overhangs) and GLOBAL (none)
+RAGGED_FLAGS = {
+    "semi_local": dict(zero_head=True, zero_tail=True, del_free=True),
+    "global": dict(zero_head=False, zero_tail=False, del_free=False)}
+
+
+def _ragged_buckets(rng, shapes, dev, *, with_c=False, special=""):
+    """``dp_general_ragged``'s input from random data, one bucket per (n,
+    q2, t2): S with zero borders, gap vectors, A/B (and C).  ``special``:
+    ``zero`` puts -0.0 into S, the gap vectors and A/B, ``nan`` one NaN
+    into S of the first pair and into gi of the last."""
+    out = []
+    for n, q2, t2 in shapes:
+        S = (rng.standard_normal((n, q2, t2)) * 2.0).astype(np.float32)
+        S[:, [0, -1], :] = 0.0
+        S[:, :, [0, -1]] = 0.0
+        gi = rng.uniform(0.5, 5.0, (n, t2)).astype(np.float32)
+        ge = rng.uniform(0.05, 1.0, (n, t2)).astype(np.float32)
+        A = np.minimum(gi, np.roll(gi, 1, axis=1))
+        B = np.minimum(ge, np.roll(ge, 1, axis=1))
+        if special == "zero":
+            S[rng.random(S.shape) < 0.3] = -0.0
+            S[:, -1, -1] = -0.0
+            gi[:, ::3] = -0.0
+            ge[:, 1::2] = -0.0
+            A[:, ::2] = -0.0
+            B[:, 1::3] = -0.0
+        elif special == "nan":
+            S[0, q2 // 2, t2 // 2] = np.nan
+            gi[-1, t2 // 2] = np.nan
+        C = (rng.normal(0.0, 1.0, (n, t2)).astype(np.float32) if with_c
+             else None)
+        out.append(tuple(None if x is None else
+                         torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                         for x in (S, np.stack([gi, ge], axis=1), A, B, C)))
+    return out
+
+
+def _ragged_vs_plain(buckets, local, flags):
+    got = dp_scores.dp_general_ragged(buckets, local=local, **flags)
+    torch.cuda.synchronize()
+    want = dp_scores.dp_general_ragged_plain(buckets, local=local, **flags)
+    assert _same_bits(got, want), (got, want)
+    return got
+
+
+@pytest.mark.parametrize("local", [False, True])
+@pytest.mark.parametrize("flags", list(RAGGED_FLAGS))
+@pytest.mark.parametrize("n,q2,t2", K3_SHAPES)
+def test_k3_ragged_equals_plain(cuda, n, q2, t2, flags, local):
+    rng = np.random.default_rng(n * 1000 + q2 + t2 + 7)
+    n0 = dp_scores.dp_general_ragged.launches
+    _ragged_vs_plain(_ragged_buckets(rng, [(n, q2, t2)], cuda), local,
+                     RAGGED_FLAGS[flags])
+    assert dp_scores.dp_general_ragged.launches == n0 + 1
+
+
+# t2 from 3 to 770, q2 from 3 to 802, in no order of length
+MIXED_SHAPES = [(2, 40, 130), (1, 258, 770), (3, 9, 3), (5, 258, 386),
+                (1, 3, 500), (4, 100, 33), (1, 802, 7), (2, 258, 258),
+                (6, 17, 129)]
+
+
+@pytest.mark.parametrize("with_c", [False, True], ids=["no_c", "c"])
+@pytest.mark.parametrize("local", [False, True])
+@pytest.mark.parametrize("flags", list(RAGGED_FLAGS))
+def test_k3_ragged_mixed_lengths_equal_plain(cuda, flags, local, with_c):
+    """One launch over nine buckets of mixed shapes: each score lands in
+    its bucket-order slot whatever the launch order."""
+    rng = np.random.default_rng(31 + local + 2 * with_c)
+    buckets = _ragged_buckets(rng, MIXED_SHAPES, cuda, with_c=with_c)
+    got = _ragged_vs_plain(buckets, local, RAGGED_FLAGS[flags])
+    assert got.shape == (sum(n for n, _, _ in MIXED_SHAPES),)
+    # bucket by bucket, each alone, gives the same bits
+    parts = [dp_scores.dp_general_ragged([b], local=local,
+                                         **RAGGED_FLAGS[flags])
+             for b in buckets]
+    assert _same_bits(got, torch.cat(parts))
+
+
+@pytest.mark.parametrize("local", [False, True])
+@pytest.mark.parametrize("flags", list(RAGGED_FLAGS))
+@pytest.mark.parametrize("special", ["zero", "nan"])
+def test_k3_signed_zero_and_nan_equal_plain(cuda, special, flags, local):
+    """-0.0 and NaN in S and in the gap vectors: the ragged launch, and the
+    table form (scores and full H) on the same costs, equal the plain
+    version as float32 bits."""
+    rng = np.random.default_rng(5 + local)
+    buckets = _ragged_buckets(rng, [(3, 11, 11), (2, 40, 33),
+                                    (2, 258, 130)], cuda, special=special)
+    got = _ragged_vs_plain(buckets, local, RAGGED_FLAGS[flags])
+    if special == "nan":
+        assert torch.isnan(got).any()
+    f = RAGGED_FLAGS[flags]
+    for S, G, A, B, _ in buckets:
+        tabs = dp_scores.prepare_tables(
+            S, G, A, B, torch.zeros_like(A), zero_head=f["zero_head"],
+            zero_tail=f["zero_tail"], off=2, has_c=False, vec_d=True,
+            del_free=f["del_free"])
+        for full_h in (False, True):
+            got = dp_scores.dp_general(*tabs, local=local, full_h=full_h)
+            torch.cuda.synchronize()
+            want = dp_scores.dp_general_plain(*tabs, local=local,
+                                              full_h=full_h)
+            assert _same_bits(got, want), full_h
+
+
+def test_k3_ragged_rejects_bad_input(cuda):
+    rng = np.random.default_rng(8)
+    (S, G, A, B, _), = _ragged_buckets(rng, [(2, 9, 8)], cuda)
+    for bad, err in (([], ValueError),
+                     ([(S.cpu(), G, A, B, None)], ValueError),
+                     ([(S.double(), G, A, B, None)], TypeError),
+                     ([(S, G[:, :1].contiguous(), A, B, None)], ValueError),
+                     ([(S.transpose(1, 2), G, A, B, None)], ValueError)):
+        with pytest.raises(err):
+            dp_scores.dp_general_ragged(bad)
 
 
 @pytest.mark.parametrize("local", [False, True])

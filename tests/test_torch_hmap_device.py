@@ -147,6 +147,46 @@ def test_screen_hmap_device_equals_jax():
     np.testing.assert_array_equal(order, j_order)
 
 
+@pytest.mark.parametrize("align_type", ["SEMI_LOCAL", "GLOBAL",
+                                        "LOCAL_GLOBAL"])
+def test_screen_hmap_device_ragged_library_equals_jax(align_type):
+    """Seven templates over four lengths (one ragged K3 call on the port's
+    side): scores bit for bit and the order equal to the JAX package's
+    ``screen_hmap_device`` and to its Pallas scores kernel in interpret
+    mode on the host costs, in the flag sets of three alignment types."""
+    from alignment_algos_tpu.ops import dp_scores as jds
+    from alignment_algos_tpu.utils.params import AlignT
+
+    rng = np.random.default_rng(11)
+    params = HMAPaliParams()
+    params.align_type = AlignT[align_type]
+    texts = (_texts(rng, 1, 30) + _texts(rng, 2, 21) + _texts(rng, 2, 38)
+             + _texts(rng, 1, 13) + _texts(rng, 1, 27))
+    texts.append(texts[3])                           # a tie
+    query, *templates = _parse(texts)
+    mq, *_ = _parse(texts, thmap.HMAPSequence)
+    ev = HMAPaliEval(params)
+    jlib = jhd.DeviceLibrary(templates, ev)
+    assert len(jlib.buckets) == 4 and len(templates) == 7
+    lib = hmap_device.DeviceLibrary.from_jax(jlib, device=CPU)
+    mparams = _port_params(params)
+    mparams.align_type = tparams.AlignT[align_type]
+    n =hmap_device.dp_scores.dp_general_ragged.launches
+    scores, order = hmap_device.screen_hmap_device(
+        mq, None, mparams, k=7, library=lib, device=CPU)
+    assert hmap_device.dp_scores.dp_general_ragged.launches == n
+    j_scores, j_order = jhd.screen_hmap_device(query, templates, params, k=7,
+                                               engine="xla", library=jlib)
+    np.testing.assert_array_equal(_bits(scores), _bits(j_scores))
+    np.testing.assert_array_equal(order, j_order)
+    want = np.zeros(len(templates), np.float32)
+    for b in jlib.buckets.values():
+        want[b["idx"]] = jds.forward_scores_batch(
+            [ev.build_costs(query, templates[i]) for i in b["idx"]],
+            interpret=True)
+    np.testing.assert_array_equal(_bits(scores), _bits(want))
+
+
 def test_screen_profiles_mixed_lengths_equals_jax():
     """Several length buckets, ties broken by index."""
     rng = np.random.default_rng(10)

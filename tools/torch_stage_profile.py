@@ -25,8 +25,9 @@ profile against 1024 template profiles of 128-384 residues.
 
 1. Replays the stages ``--repeats`` times, synchronizing after each:
    profile parsing, the library's host packing and copy to the device,
-   then per length bucket K5, K6, the cost-table build, K3 and the score
-   pull (summed over the buckets), and the top-k.
+   K5 and K6 per length bucket (each summed over the buckets), K3 once
+   over the whole library (one ragged launch, its costs built in the
+   kernel), the score pull and the top-k.
 2. Runs the whole CLI once under ``torch.profiler`` (as above).
 
 Prints one JSON object with every number and the card's name and power
@@ -116,12 +117,12 @@ def replay(qfa, lfa, blosum, gi, ge, dev):
 
 def replay_profiles(qfn, lib_dir, dev):
     """One pass over ``--profiles 1``'s stages; returns {stage: seconds}
-    (the per-bucket stages summed over the buckets)."""
+    (K5 and K6 summed over the buckets, K3 one launch)."""
     from alignment_algos_tpu_torch.cli import screen as cli
     from alignment_algos_tpu_torch.ops import dp_scores as ds
     from alignment_algos_tpu_torch.ops import hmap_device as hd
 
-    st = dict.fromkeys(("K5", "K6", "tables", "K3", "pull"), 0.0)
+    st = dict.fromkeys(("K5", "K6"), 0.0)
     t0 = sync()
     query, templates, _ = cli.read_profiles(qfn, lib_dir)
     t1 = sync()
@@ -133,33 +134,30 @@ def replay_profiles(qfn, lib_dir, dev):
     st["library pack + to_device"] = t2 - t1
     alpha = float(np.float32(params.alpha))
     shift = float(-np.float32(params.zero_shift))
-    at = hd.AlignT(params.align_type)
-    zh, zt = hd.ins_zero_flags(at)
-    scores = np.zeros(len(templates), np.float32)
+    buckets = []
     for b in library.buckets.values():
         a = sync()
         raw = hd.hmap_sim(qt["aa"], qt["zsse"], qt["conf"], b["aa"],
                           b["zsse"], b["conf"], alpha)
         b1 = sync()
-        S = hd.hmap_znorm(raw, shift)
+        buckets.append((hd.hmap_znorm(raw, shift), b["D"], b["A"], b["B"],
+                        None))
         b2 = sync()
-        tabs = ds.prepare_tables(
-            S, b["D"], b["A"], b["B"], torch.zeros_like(b["A"]),
-            zero_head=zh, zero_tail=zt, off=2, has_c=False, vec_d=True,
-            del_free=at in hd._DEL_FREE_OVERHANG_MODES)
-        b3 = sync()
-        out = ds.dp_general(*tabs)
-        b4 = sync()
-        scores[b["idx"]] = out.cpu().numpy()
-        b5 = sync()
-        for k, dt in zip(("K5", "K6", "tables", "K3", "pull"),
-                         (b1 - a, b2 - b1, b3 - b2, b4 - b3, b5 - b4)):
-            st[k] += dt
+        st["K5"] += b1 - a
+        st["K6"] += b2 - b1
     t3 = sync()
-    np.lexsort((np.arange(len(scores)), -scores))[:cs.TOP_K]
+    out = ds.dp_general_ragged(buckets, **hd.ragged_flags(params))
     t4 = sync()
-    st["top-k"] = t4 - t3
-    st["total"] = t4 - t0
+    st["K3"] = t4 - t3
+    scores = np.zeros(len(templates), np.float32)
+    scores[[i for b in library.buckets.values() for i in b["idx"]]] = \
+        out.cpu().numpy()
+    t5 = sync()
+    st["pull"] = t5 - t4
+    np.lexsort((np.arange(len(scores)), -scores))[:cs.TOP_K]
+    t6 = sync()
+    st["top-k"] = t6 - t5
+    st["total"] = t6 - t0
     st["buckets"] = len(library.buckets)
     return st
 
