@@ -74,6 +74,8 @@
 //   buffer; above 48 KB through cudaFuncSetAttribute.  No size gate and no
 //   fallback: the vector form runs t2 up to 2,616 at R = 8 and 7,200 at
 //   R = 1, the table form up to 19,200; a longer pair fails at launch.
+//   dp_general_max_t2 reports the cap, and the profile screen sends a
+//   longer template's bucket to K7 (ops/hmap_device.screen_hmap_device).
 // - The closing cell is a block-wide max over shared memory.
 //
 // What bounds it.  Every candidate is a subtract and a max, plus its cost
@@ -457,4 +459,17 @@ extern "C" int dp_general_launch(const void* pairs, float* out, int n, int ld,
   cudaStream_t s = (cudaStream_t)stream;
   return vec ? launch_rows<true>(R, pairs, out, n, ld, f, s)
              : launch_rows<false>(R, pairs, out, n, ld, f, s);
+}
+
+// The largest t2 a launch takes in the vector form (vec = 1) or the table
+// form on the current card: the longest pair for which tile_rows finds a
+// tile (7,200 and 19,200 with 227 KB of shared memory per block).
+extern "C" int dp_general_max_t2(int vec) {
+  int lo = 0, hi = 1 << 20;  // tile_rows falls as t2 grows
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (tile_rows(row_stride(mid), vec) > 0) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
 }

@@ -9,7 +9,8 @@
 //      [1, q2-1) x [1, t2-1) region as a strictly serial float32 chain in
 //      row-major order, then (S - avg) / std + zero_shift inside the
 //      region (only + zero_shift when not normalizing), 0 on the borders.
-//      One host call launches its two passes (stats, apply).
+//      One host call launches its two passes (stats, apply) over every
+//      pair of a screen, each pair described by a ZPair.
 // Neither is a Pallas kernel on the TPU (XLA code with binary64 emulated on
 // uint32 pairs); on the card the arithmetic is native.
 //
@@ -17,10 +18,10 @@
 //   * every dot product is a serial multiply-then-add chain in k, as
 //     utils/hmath.seq_matmul_f32; the build passes -fmad=false, so no
 //     multiply and add are contracted anywhere in this file;
-//   * pc = dot3 / 3 and the z-norm's divisions are IEEE float32 division,
-//     the square root sqrtf, both correctly rounded under nvcc's defaults
-//     (-prec-div=true, -prec-sqrt=true), so sf64's integer-corrected div32
-//     and sqrt32 have no counterpart;
+//   * pc = dot3 / 3 and the z-norm's divisions are IEEE float32 division
+//     (/ under nvcc's default -prec-div=true, and __fdiv_rn), the square
+//     root __fsqrt_rn, all correctly rounded, so sf64's integer-corrected
+//     div32 and sqrt32 have no counterpart;
 //   * expf is a replica of glibc 2.36 __expf_fma (the libm the host path
 //     calls) in native float64 with __fma_rn at exactly the sites where that
 //     build fuses (ops/sf64.py expf_bits, :444-457), on finite |x| < 87;
@@ -31,11 +32,17 @@
 //
 // What bounds them.  K5: one thread per cell, 23 multiply-adds and one
 // expf, about 100 bytes of profile reads per cell from L1: arithmetic and
-// latency, far below a roofline.  K6's stats pass: one thread per pair
-// walks about 65,000 dependent adds at 258 x 258, so it is latency bound by
-// design (the order is the contract); its apply pass is elementwise.
-// Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit, on a 5-pair
-// 258 x 258 bucket: K5 0.062 ms, K6 1.43 ms (almost all of it the chain).
+// latency, far below a roofline.  K6's stats pass is one dependent chain
+// per pair (the order is the contract): a screen's time is at least its
+// longest region times one float32 add's latency.  So all pairs run at
+// once, one warp each, in one launch, and the chain reads shared memory
+// that cp.async filled chunks ahead, so it never waits on device memory;
+// the apply pass is elementwise and bound by bytes (S read, out written).
+// Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit: K5 0.036
+// ms on a 5-pair 258 x 258 bucket; K6 0.79 ms for a 1024-template profile
+// screen in one launch (stats 0.52 ms, apply 0.26 ms; 253 launches took
+// 431 ms before), 0.30 ms for the 258 x 258 bucket alone: the chain runs
+// about 9 cycles an element, against 4 for its adds alone.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -129,50 +136,187 @@ __global__ void hmap_sim_kernel(const float* __restrict__ q_aa,
   S[idx] = fabsf(v) <= kFltMax ? v : 0.0f;  // nan_to_num: NaN, +-inf -> 0
 }
 
-// stats (n, 2): the region's mean and standard deviation, one thread per
-// pair, one serial chain each.
-__global__ void hmap_znorm_stats_kernel(const float* __restrict__ S,
-                                        float* __restrict__ stats, int n,
-                                        int q2, int t2) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const float* s = S + (size_t)p * q2 * t2;
-  float acc = 0.0f;
-  float acc2 = 0.0f;
-  for (int i = 1; i < q2 - 1; ++i) {
-    const float* row = s + (size_t)i * t2;
-    for (int j = 1; j < t2 - 1; ++j) {
-      const float x = row[j];
-      acc = acc + x;
-      acc2 = acc2 + x * x;
-    }
-  }
-  const float m = (float)((q2 - 2) * (t2 - 2));
-  const float avg = acc / m;
-  const float var = acc2 / m - avg * avg;
-  stats[2 * p] = avg;
-  stats[2 * p + 1] = sqrtf(var);
+// ------------------------------------------------------------------ K6
+//
+// One pair of a K6 launch (32 bytes; ops/hmap_device.ZPAIR_DTYPE mirrors
+// it): its raw similarity S and its output, each q2 x t2 row-major (out
+// may be S), and the first block of the apply pass that covers it.
+struct ZPair {
+  const float* S;
+  float* out;
+  int32_t q2, t2, blk0, pad;
+};
+
+constexpr int kZWarps = 2;    // pairs (one warp each) per stats block
+constexpr int kChunk = 1024;  // region elements per ring slot (4 KB)
+constexpr int kStages = 4;    // ring slots: kStages - 1 chunks in flight
+constexpr int kApplyPerThread = 16;
+constexpr int kApplyElems = kThreads * kApplyPerThread;  // per apply block
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
 }
 
-__global__ void hmap_znorm_apply_kernel(const float* __restrict__ S,
-                                        float* __restrict__ out,
-                                        const float* __restrict__ stats,
-                                        float shift, int n, int q2, int t2,
-                                        int normalize) {
-  const size_t total = (size_t)n * q2 * t2;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const size_t qt = (size_t)q2 * t2;
-  const size_t p = idx / qt;
-  const int i = (int)((idx % qt) / t2);
-  const int j = (int)(idx % t2);
-  if (i == 0 || i == q2 - 1 || j == 0 || j == t2 - 1) {
-    out[idx] = 0.0f;
-    return;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most kStages - 2 of this thread's copy groups are pending
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+}
+
+// A lane's place in the serial order of its pair's region [1, q2-1) x
+// [1, t2-1) (w = t2 - 2 columns): region row ri, column rj; the lane copies
+// every 32nd element.
+struct Cursor {
+  int ri, rj;
+  __device__ __forceinline__ void advance(int w) {
+    rj += 32;
+    while (rj >= w) {  // once at most unless w < 32
+      rj -= w;
+      ++ri;
+    }
   }
-  float v = S[idx];
-  if (normalize) v = (v - stats[2 * p]) / stats[2 * p + 1];
-  out[idx] = v + shift;
+};
+
+// Copy chunk c of the region into slot, one cp.async per element (rows
+// start at any 4-byte offset), and commit the group; a chunk past the end
+// commits an empty group so that the ring's group count stays uniform.
+__device__ __forceinline__ void issue_chunk(float* slot, const float* S,
+                                            int t2, int w, int m, int c,
+                                            int lane, Cursor& cur) {
+  const int e0 = c * kChunk;
+#pragma unroll 4
+  for (int k = lane; k < kChunk; k += 32) {
+    if (e0 + k >= m) break;
+    cp_async4(slot + k, S + (cur.ri + 1) * t2 + cur.rj + 1);
+    cur.advance(w);
+  }
+  cp_async_commit();
+}
+
+// acc += x.x, .y, .z, .w in order; acc2 likewise over their squares,
+// each rounded alone.
+__device__ __forceinline__ void add4(float& acc, float& acc2, float4 x) {
+  acc = __fadd_rn(acc, x.x);
+  acc2 = __fadd_rn(acc2, __fmul_rn(x.x, x.x));
+  acc = __fadd_rn(acc, x.y);
+  acc2 = __fadd_rn(acc2, __fmul_rn(x.y, x.y));
+  acc = __fadd_rn(acc, x.z);
+  acc2 = __fadd_rn(acc2, __fmul_rn(x.z, x.z));
+  acc = __fadd_rn(acc, x.w);
+  acc2 = __fadd_rn(acc2, __fmul_rn(x.w, x.w));
+}
+
+// stats[p] = (avg, std) of pair p's region, one warp per pair.  The
+// chain's order is the contract (hmath.norm_elements_vec), so one lane
+// adds every element in row-major region order; the other 31 keep it fed:
+// the region streams global -> shared through a ring of kStages chunks
+// (cp.async).  Lane 0 walks each chunk four elements at a time (the next
+// four loaded before the current ones are added), two independent chains
+// (the squares' multiplies fill the adds' latency), while the next chunks'
+// copies are in flight.  (A pass in which the warp squares each chunk
+// into a second buffer before the walk would lie on the chain's critical
+// path; the walk's multiplies fill the adds' latency instead.)
+__global__ void __launch_bounds__(32 * kZWarps)
+    hmap_znorm_stats_kernel(const ZPair* __restrict__ pairs,
+                            float2* __restrict__ stats, int n) {
+  __shared__ __align__(16) float ring[kZWarps][kStages][kChunk];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * kZWarps + warp;
+  if (p >= n) return;  // the whole warp; no block-wide barrier below
+  const ZPair pr = pairs[p];
+  const int w = pr.t2 - 2;
+  const int m = (pr.q2 - 2) * w;  // the wrapper keeps q2 * t2 below 2^31
+  const int chunks = (m + kChunk - 1) / kChunk;
+  Cursor cur{lane / w, lane % w};
+  for (int c = 0; c < kStages - 1; ++c)
+    issue_chunk(ring[warp][c], pr.S, pr.t2, w, m, c, lane, cur);
+  float acc = 0.0f;   // +0.0: fl(+0 + x) = x, -0.0 included (+0.0)
+  float acc2 = 0.0f;
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait_ring();
+    __syncwarp();
+    const float* x = ring[warp][c % kStages];
+    const int cnt = min(kChunk, m - c * kChunk);
+    // the slot walked in the previous step takes chunk c + kStages - 1
+    issue_chunk(ring[warp][(c + kStages - 1) % kStages], pr.S, pr.t2, w, m,
+                c + kStages - 1, lane, cur);
+    if (lane == 0) {
+      const float4* x4 = reinterpret_cast<const float4*>(x);
+      const int n4 = cnt >> 2;
+      if (n4 > 0) {
+        float4 a = x4[0];
+#pragma unroll 4
+        for (int k = 1; k < n4; ++k) {
+          const float4 next = x4[k];
+          add4(acc, acc2, a);
+          a = next;
+        }
+        add4(acc, acc2, a);
+      }
+      for (int k = n4 << 2; k < cnt; ++k) {
+        acc = __fadd_rn(acc, x[k]);
+        acc2 = __fadd_rn(acc2, __fmul_rn(x[k], x[k]));
+      }
+    }
+    __syncwarp();
+  }
+  if (lane == 0) {
+    const float mf = __int2float_rn(m);
+    const float avg = __fdiv_rn(acc, mf);
+    const float var = __fsub_rn(__fdiv_rn(acc2, mf), __fmul_rn(avg, avg));
+    stats[p] = make_float2(avg, __fsqrt_rn(var));
+  }
+}
+
+// out = (S - avg) / std + shift inside each pair's region (only + shift
+// when not normalizing), 0 on its borders.  One block covers kApplyElems
+// consecutive elements of one pair; it finds its pair by a binary search
+// over the descriptors' first blocks.
+__global__ void __launch_bounds__(kThreads)
+    hmap_znorm_apply_kernel(const ZPair* __restrict__ pairs,
+                            const float2* __restrict__ stats, int n,
+                            float shift, int normalize) {
+  const int b = blockIdx.x;
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (pairs[mid].blk0 <= b) lo = mid;
+    else hi = mid - 1;
+  }
+  const ZPair pr = pairs[lo];
+  const int q2 = pr.q2, t2 = pr.t2;
+  const int total = q2 * t2;  // the wrapper keeps it below 2^31
+  float avg = 0.0f, sd = 1.0f;
+  if (normalize) {
+    const float2 st = stats[lo];
+    avg = st.x;
+    sd = st.y;
+  }
+  int idx = (b - pr.blk0) * kApplyElems + threadIdx.x;
+  int i = idx / t2, j = idx % t2;
+#pragma unroll 4
+  for (int k = 0; k < kApplyPerThread && idx < total; ++k) {
+    float v = 0.0f;
+    if (i != 0 && i != q2 - 1 && j != 0 && j != t2 - 1) {
+      v = pr.S[idx];
+      if (normalize) v = __fdiv_rn(__fsub_rn(v, avg), sd);
+      v = __fadd_rn(v, shift);
+    }
+    pr.out[idx] = v;
+    idx += kThreads;
+    j += kThreads;
+    if (j >= t2) {
+      i += j / t2;
+      j %= t2;
+    }
+  }
 }
 
 unsigned grid_of(size_t total) {
@@ -197,19 +341,25 @@ extern "C" int hmap_sim_launch(const float* q_aa, const float* q_zsse,
   return (int)cudaGetLastError();
 }
 
-// stats: (n, 2) scratch; out may not alias S.
-extern "C" int hmap_znorm_launch(const float* S, float* out, float* stats,
-                                 float shift, int n, int q2, int t2,
-                                 int normalize, void* stream) {
+// K6 over n pairs (ZPair descriptors in device memory, longest region
+// first): the stats pass into stats (n float2 scratch) when normalizing,
+// then the apply pass over blocks apply blocks (the pairs' blk0 ranges).
+extern "C" int hmap_znorm_launch(const void* pairs, float* stats, int n,
+                                 int blocks, float shift, int normalize,
+                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const ZPair* zp = static_cast<const ZPair*>(pairs);
+  float2* st2 = reinterpret_cast<float2*>(stats);
   if (normalize) {
-    hmap_znorm_stats_kernel<<<(n + 31) / 32, 32, 0, st>>>(S, stats, n, q2,
-                                                          t2);
+    hmap_znorm_stats_kernel<<<(n + kZWarps - 1) / kZWarps, 32 * kZWarps, 0,
+                              st>>>(zp, st2, n);
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;
   }
-  const size_t total = (size_t)n * q2 * t2;
-  hmap_znorm_apply_kernel<<<grid_of(total), kThreads, 0, st>>>(
-      S, out, stats, shift, n, q2, t2, normalize);
+  hmap_znorm_apply_kernel<<<blocks, kThreads, 0, st>>>(zp, st2, n, shift,
+                                                       normalize);
   return (int)cudaGetLastError();
 }
+
+// Elements of one pair that one apply block covers (the wrapper's blk0).
+extern "C" int hmap_znorm_apply_elems(void) { return kApplyElems; }

@@ -36,12 +36,16 @@ kernel places NaN, and the sign of a few zeros, otherwise).
 The TPU's 8-pair sublane groups, 128-lane padding and VMEM cap have no
 counterpart and there is no ``supported()`` gate and no fallback: K3 keeps
 its rows in shared memory, which holds t2 up to 7,200 in the vector form
-and 19,200 in the table form (a longer pair raises at launch).  The bounds
-are the whole matrix, q0 = t0 = 0, q1 = q2 - 1, t1 = t2 - 1, as every
-caller uses them.
+and 19,200 in the table form (a longer pair raises at launch).
+:func:`vec_max_t2` reads the vector form's cap from the kernel's library,
+and the profile screen scores a longer template's bucket on K7 instead
+(``hmap_device.screen_hmap_device``).  The bounds are the whole matrix,
+q0 = t0 = 0, q1 = q2 - 1, t1 = t2 - 1, as every caller uses them.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -52,7 +56,7 @@ NEG = -3.0e38
 
 __all__ = ["NEG", "PAIR_DTYPE", "dp_general", "dp_general_plain",
            "dp_general_ragged", "dp_general_ragged_plain",
-           "forward_scores_batch", "prepare_tables"]
+           "forward_scores_batch", "prepare_tables", "vec_max_t2"]
 
 
 # ----------------------------------------------------------- plain version
@@ -346,6 +350,24 @@ def dp_general_ragged(buckets, *, local: bool = False,
 
 
 dp_general_ragged.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _vec_max_t2_on(index: int) -> int:
+    with torch.cuda.device(index):
+        return int(_build.load().lib.dp_general_max_t2(1))
+
+
+def vec_max_t2(device) -> int | None:
+    """The longest t2 that :func:`dp_general_ragged` takes on ``device``
+    (its rows in shared memory: 7,200 on an H100), read from the kernel's
+    library once per card; None on the CPU, where the plain version has no
+    cap."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return _vec_max_t2_on(device.index if device.index is not None
+                          else torch.cuda.current_device())
 
 
 # -------------------------------------------------- tables and entry point

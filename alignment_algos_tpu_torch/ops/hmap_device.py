@@ -13,9 +13,10 @@ simmatrix.h:50-73):
     S   = (S - avg) / std - zero_shift on [1, q2-1) x [1, t2-1), 0 borders
 
 Two hand-written kernels (``csrc/hmap_device.cu``) carry it, each beside
-its plain PyTorch version: K5 (:func:`hmap_sim`) the raw similarity, K6
-(:func:`hmap_znorm`) the z-norm and shift.  The z-norm's mean and variance
-are strictly serial float32 sums in row-major region order
+its plain PyTorch version: K5 (:func:`hmap_sim`, one launch per length
+bucket) the raw similarity, K6 (:func:`hmap_znorm_ragged`, one launch over
+every bucket of a screen) the z-norm and shift.  The z-norm's mean and
+variance are strictly serial float32 sums in row-major region order
 (``utils/hmath.seq_sum_f32``): ``torch.sum`` and ``torch.cumsum`` round
 differently (the CPU accumulates float32 in double, CUDA scans in
 parallel), so the plain version is a loop of float32 adds, vectorized only
@@ -23,26 +24,32 @@ across pairs.  Its divisions divide by a tensor, never by a Python or CPU
 scalar: PyTorch's CUDA division multiplies by the reciprocal of a CPU
 scalar, which is not the correctly rounded quotient.  Then K3
 (``dp_scores.dp_general_ragged``) scores every bucket of the library in one
-launch, its costs built in the kernel from the gap vectors.  There is no
-VMEM cap and no host fallback: every bucket goes producer -> K3.
+launch, its costs built in the kernel from the gap vectors.  A bucket
+whose templates are longer than K3's rows in shared memory hold
+(``dp_scores.vec_max_t2``, 7,200 on an H100) is scored exactly on K7, as
+the JAX package sends a bucket past its VMEM cap to ``dp_engine``.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from ..scoring.base import _DEL_FREE_OVERHANG_MODES, ins_zero_flags
+from ..scoring.base import (_DEL_FREE_OVERHANG_MODES, DPCosts,
+                            affine_deletion_table, ins_zero_flags)
 from ..scoring.hmap_eval import HMAPaliEval
 from ..utils.hmath import seq_sum_f32
 from ..utils.params import AlignT, HMAPaliParams
-from . import _build, dp_scores
+from . import _build, dp_engine, dp_scores
 from .expf import expf_plain
 
-__all__ = ["DeviceLibrary", "HMAPaliEval", "HMAPaliParams",
+__all__ = ["DeviceLibrary", "HMAPaliEval", "HMAPaliParams", "ZPAIR_DTYPE",
            "bucket_tables", "build_similarity_device", "hmap_sim",
            "hmap_sim_plain", "query_tensors", "ragged_flags",
-           "hmap_znorm", "hmap_znorm_plain", "pack_sequence",
+           "hmap_znorm", "hmap_znorm_plain", "hmap_znorm_ragged",
+           "hmap_znorm_ragged_plain", "pack_sequence",
            "pack_template_costs", "screen_buckets", "screen_hmap_device",
            "serial_sums", "sqrt_rn"]
 
@@ -181,13 +188,16 @@ hmap_sim.launches = 0
 
 # ------------------------------------------------ K6: z-norm and the shift
 
-def serial_sums(v: torch.Tensor):
+def serial_sums(v: torch.Tensor, acc: torch.Tensor | None = None,
+                acc2: torch.Tensor | None = None):
     """(n, m) -> (acc, acc2) (n,): sum v and sum v*v along m as one strictly
-    serial float32 chain per row, from 0 (fl(0 + x) = x).  Equals
+    serial float32 chain per row, from 0 (fl(0 + x) = x) or, when given,
+    onward from ``acc`` and ``acc2`` (updated in place).  Equals
     utils/hmath.seq_sum_f32; torch.sum and torch.cumsum do not."""
     n, m = v.shape
-    acc = torch.zeros((n,), dtype=torch.float32, device=v.device)
-    acc2 = torch.zeros((n,), dtype=torch.float32, device=v.device)
+    if acc is None:
+        acc = torch.zeros((n,), dtype=torch.float32, device=v.device)
+        acc2 = torch.zeros((n,), dtype=torch.float32, device=v.device)
     cols = v.t().contiguous()
     sq = cols * cols                           # each square rounded alone
     for r in range(m):
@@ -196,12 +206,52 @@ def serial_sums(v: torch.Tensor):
     return acc, acc2
 
 
-def _znorm_stats_plain(S: torch.Tensor):
+# Chain steps per block of the plain z-norm's stats: its scratch is about
+# 12 bytes x this x the pairs whose regions reach the block.
+STATS_BLOCK = 4096
+
+
+def _znorm_stats_plain(Ss):
     """Mean and standard deviation of each pair's [1, q2-1) x [1, t2-1)
-    region, exactly as hmath.norm_elements_vec (JAX ``_znorm_scalars``)."""
-    n, q2, t2 = S.shape
-    acc, acc2 = serial_sums(S[:, 1:q2 - 1, 1:t2 - 1].reshape(n, -1))
-    m = torch.full_like(acc, float((q2 - 2) * (t2 - 2)))
+    region, exactly as hmath.norm_elements_vec (JAX ``_znorm_scalars``),
+    for every pair of the stacks ``Ss`` at once: (avg, std), each (sum of
+    n,) in stack order.
+
+    Every pair's chain runs in one loop (one step per element of the
+    longest region, not of every stack): the stacks go longest region
+    first, and :func:`serial_sums` walks :data:`STATS_BLOCK` region
+    elements at a time of the pairs whose regions reach that far, a
+    shorter one among them padded with +0.0 to the block's end.  The
+    padding leaves each chain's bits as they are: a chain starts at +0.0
+    and fl(a + b) is -0.0 only when a and b both are, so no chain is ever
+    -0.0, and acc + 0.0 = acc for every other float32, NaN and inf
+    included."""
+    regions = [S[:, 1:S.shape[1] - 1, 1:S.shape[2] - 1].reshape(S.shape[0], -1)
+               for S in Ss]
+    order = sorted(range(len(regions)), key=lambda b: -regions[b].shape[1])
+    counts = [regions[b].shape[0] for b in order]
+    ends = np.cumsum(counts)
+    dev = Ss[0].device
+    acc = torch.zeros((int(ends[-1]),), dtype=torch.float32, device=dev)
+    acc2 = torch.zeros_like(acc)
+    longest = regions[order[0]].shape[1]
+    for start in range(0, longest, STATS_BLOCK):
+        live = [b for b in order if regions[b].shape[1] > start]
+        rows = int(ends[len(live) - 1])
+        v = torch.zeros((rows, min(STATS_BLOCK, longest - start)),
+                        dtype=torch.float32, device=dev)
+        p = 0
+        for b in live:
+            r = regions[b][:, start:start + v.shape[1]]
+            v[p:p + r.shape[0], :r.shape[1]] = r
+            p += r.shape[0]
+        serial_sums(v, acc[:rows], acc2[:rows])
+    back = np.argsort(order)                   # stack b's place in order
+    acc, acc2 = (torch.cat([torch.split(x, counts)[i] for i in back])
+                 for x in (acc, acc2))
+    m = torch.tensor(np.repeat(np.asarray([r.shape[1] for r in regions],
+                                          np.float32),
+                               [r.shape[0] for r in regions]), device=dev)
     avg = acc / m
     var = acc2 / m - avg * avg
     return avg, sqrt_rn(var)
@@ -214,53 +264,147 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).to(torch.float32)
 
 
+def hmap_znorm_ragged_plain(Ss, zero_shift: float, *,
+                            normalize: bool = True) -> list:
+    """Plain version of K6 (hmap_device.py:161-167 of the JAX package) for
+    every stack of ``Ss``: (S - avg) / std + zero_shift inside each pair's
+    region (only + zero_shift when not normalizing), 0 on the borders; the
+    stats of all pairs in one padded chain (:func:`_znorm_stats_plain`).
+    ``zero_shift`` is the signed shift (the params' zero_shift negated)."""
+    if normalize:
+        avg, std = _znorm_stats_plain(Ss)
+    outs, p = [], 0
+    for S in Ss:
+        n, q2, t2 = S.shape
+        border = _border(q2, t2, S.device)
+        if normalize:
+            S = torch.where(border, S, (S - avg[p:p + n, None, None])
+                            / std[p:p + n, None, None])
+        shift = torch.tensor(zero_shift, dtype=torch.float32, device=S.device)
+        S = torch.where(border, S, S + shift)
+        outs.append(torch.where(border, 0.0, S))
+        p += n
+    return outs
+
+
 def hmap_znorm_plain(S: torch.Tensor, zero_shift: float, *,
                      normalize: bool = True) -> torch.Tensor:
-    """Plain version of K6 (hmap_device.py:161-167 of the JAX package):
-    (S - avg) / std + zero_shift inside the region (only + zero_shift when
-    not normalizing), 0 on the borders.  ``zero_shift`` is the signed shift
-    (the params' zero_shift negated)."""
-    n, q2, t2 = S.shape
-    border = _border(q2, t2, S.device)
-    if normalize:
-        avg, std = _znorm_stats_plain(S)
-        S = torch.where(border, S, (S - avg[:, None, None])
-                        / std[:, None, None])
-    shift = torch.tensor(zero_shift, dtype=torch.float32, device=S.device)
-    S = torch.where(border, S, S + shift)
-    return torch.where(border, 0.0, S)
+    """Plain version of K6 for one (n, q2, t2) stack."""
+    return hmap_znorm_ragged_plain([S], zero_shift, normalize=normalize)[0]
+
+
+# One pair of a K6 launch, as ``struct ZPair`` of csrc/hmap_device.cu: the
+# device addresses of its S and its output, q2, t2 and its first apply
+# block.
+ZPAIR_DTYPE = np.dtype([("S", "<u8"), ("out", "<u8"), ("q2", "<i4"),
+                        ("t2", "<i4"), ("blk0", "<i4"), ("pad", "<i4")])
+
+
+def _check_znorm(Ss) -> torch.device:
+    """Validate K6's input contract; returns the device."""
+    if not Ss:
+        raise ValueError("K6 needs at least one stack")
+    dev = Ss[0].device
+    for S in Ss:
+        _check_f32(dev, S=S)
+        if S.dim() != 3:
+            raise ValueError(f"S must be (n, q2, t2), got {tuple(S.shape)}")
+        n, q2, t2 = S.shape
+        if n < 1 or q2 < 3 or t2 < 3:
+            raise ValueError(f"K6 needs n >= 1 and q2, t2 >= 3, got n={n}, "
+                             f"q2={q2}, t2={t2}")
+        if q2 * t2 >= 2 ** 31 - 2 ** 16:
+            raise ValueError(f"K6 indexes a pair in 32 bits: q2 x t2 = "
+                             f"{q2} x {t2} is too large")
+    return dev
+
+
+def _znorm_descriptors(Ss, outs, per_block: int):
+    """The pairs of a K6 launch, longest region first, each with its first
+    apply block (``per_block`` elements a block); returns (pairs, the
+    apply pass's block count)."""
+    shapes = np.asarray([tuple(S.shape) for S in Ss], np.int64)
+    n = shapes[:, 0]
+    p = (np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)).astype(
+        np.uint64)
+    step = np.repeat((4 * shapes[:, 1] * shapes[:, 2]).astype(np.uint64), n)
+    pairs = np.zeros(len(p), ZPAIR_DTYPE)
+    pairs["S"] = np.repeat(np.asarray([S.data_ptr() for S in Ss],
+                                      np.uint64), n) + p * step
+    pairs["out"] = np.repeat(np.asarray([o.data_ptr() for o in outs],
+                                        np.uint64), n) + p * step
+    pairs["q2"] = np.repeat(shapes[:, 1], n)
+    pairs["t2"] = np.repeat(shapes[:, 2], n)
+    region = (pairs["q2"].astype(np.int64) - 2) * (pairs["t2"] - 2)
+    pairs = pairs[np.argsort(-region, kind="stable")]
+    blocks = -(-(pairs["q2"].astype(np.int64) * pairs["t2"]) // per_block)
+    pairs["blk0"] = np.cumsum(blocks) - blocks
+    return np.ascontiguousarray(pairs), int(blocks.sum())
+
+
+class ZPlan(NamedTuple):
+    """One K6 launch's state on the card: the outputs, the descriptors in
+    device memory, the (pairs, 2) stats scratch and the apply pass's block
+    count."""
+    outs: list
+    desc: torch.Tensor
+    stats: torch.Tensor
+    blocks: int
+
+
+def _znorm_plan(Ss) -> ZPlan:
+    """K6's launch state for the CUDA stacks ``Ss`` (checked); the
+    descriptors' copy is queued on the current stream."""
+    dev = Ss[0].device
+    outs = [torch.empty_like(S) for S in Ss]
+    pairs, blocks = _znorm_descriptors(
+        Ss, outs, _build.load().lib.hmap_znorm_apply_elems())
+    with torch.cuda.device(dev):
+        desc = torch.from_numpy(pairs.view(np.uint8)).pin_memory().to(
+            dev, non_blocking=True)
+    stats = torch.empty((len(pairs), 2), dtype=torch.float32, device=dev)
+    return ZPlan(outs, desc, stats, blocks)
+
+
+def _znorm_launch(plan: ZPlan, zero_shift: float, normalize: bool) -> None:
+    """Launch K6's passes over ``plan`` on the current stream."""
+    dev = plan.desc.device
+    with torch.cuda.device(dev):
+        err = _build.load().lib.hmap_znorm_launch(
+            plan.desc.data_ptr(), plan.stats.data_ptr(), plan.stats.shape[0],
+            plan.blocks, float(np.float32(zero_shift)), int(bool(normalize)),
+            _cuda_stream(dev))
+    _build.check(err, "hmap_znorm_launch")
+
+
+def hmap_znorm_ragged(Ss, zero_shift: float, *,
+                      normalize: bool = True) -> list:
+    """K6: z-normalize and shift the similarity stacks ``Ss`` (a sequence
+    of (n, q2, t2) float32 tensors, one per length bucket, on one device);
+    returns new tensors in the same order.
+
+    CPU tensors run :func:`hmap_znorm_ragged_plain`; CUDA tensors launch
+    the kernel once for every pair of every stack (its stats pass only
+    when ``normalize``), on the current stream and without a host sync (a
+    build or launch failure raises)."""
+    Ss = list(Ss)
+    dev = _check_znorm(Ss)
+    if _cuda_stream(dev) is None:
+        return hmap_znorm_ragged_plain(Ss, zero_shift, normalize=normalize)
+    plan = _znorm_plan(Ss)
+    _znorm_launch(plan, zero_shift, normalize)
+    hmap_znorm_ragged.launches += 1
+    return plan.outs
+
+
+hmap_znorm_ragged.launches = 0
 
 
 def hmap_znorm(S: torch.Tensor, zero_shift: float, *,
                normalize: bool = True) -> torch.Tensor:
-    """K6: z-normalize and shift a (n, q2, t2) similarity stack; returns a
-    new tensor.  CPU tensors run :func:`hmap_znorm_plain`; CUDA tensors
-    launch the kernel (its stats pass only when ``normalize``)."""
-    dev = S.device
-    _check_f32(dev, S=S)
-    if S.dim() != 3:
-        raise ValueError(f"S must be (n, q2, t2), got {tuple(S.shape)}")
-    n, q2, t2 = S.shape
-    if n < 1 or q2 < 3 or t2 < 3:
-        raise ValueError(f"K6 needs n >= 1 and q2, t2 >= 3, got n={n}, "
-                         f"q2={q2}, t2={t2}")
-    stream = _cuda_stream(dev)
-    if stream is None:
-        return hmap_znorm_plain(S, zero_shift, normalize=normalize)
-    lib = _build.load().lib
-    out = torch.empty_like(S)
-    stats = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.hmap_znorm_launch(
-            S.data_ptr(), out.data_ptr(), stats.data_ptr(),
-            float(np.float32(zero_shift)), n, q2, t2, int(bool(normalize)),
-            stream)
-    _build.check(err, "hmap_znorm_launch")
-    hmap_znorm.launches += 1
-    return out
-
-
-hmap_znorm.launches = 0
+    """K6 on one (n, q2, t2) stack: :func:`hmap_znorm_ragged` of ``[S]``
+    (its launch counts there)."""
+    return hmap_znorm_ragged([S], zero_shift, normalize=normalize)[0]
 
 
 def build_similarity_device(q_aa, q_zsse, q_conf, t_aa, t_zsse, t_conf,
@@ -335,13 +479,18 @@ def query_tensors(query, device: torch.device) -> dict:
     return {key: _to(v, device) for key, v in pack_sequence(query).items()}
 
 
-def _similarity(qt: dict, b: dict, params) -> torch.Tensor:
-    """K5 then K6 for one bucket (``b`` a :class:`DeviceLibrary` bucket,
-    ``qt`` :func:`query_tensors`)."""
-    return build_similarity_device(
-        qt["aa"], qt["zsse"], qt["conf"], b["aa"], b["zsse"], b["conf"],
-        float(np.float32(params.alpha)), float(-np.float32(params.zero_shift)),
-        normalize=bool(params.normalize_mtx))
+def _znorm(Ss, params) -> list:
+    """K6 over the stacks ``Ss`` with the params' signed shift and
+    normalize flag."""
+    return hmap_znorm_ragged(Ss, float(-np.float32(params.zero_shift)),
+                             normalize=bool(params.normalize_mtx))
+
+
+def _raw_similarity(qt: dict, b: dict, params) -> torch.Tensor:
+    """K5 for one bucket (``b`` a :class:`DeviceLibrary` bucket, ``qt``
+    :func:`query_tensors`)."""
+    return hmap_sim(qt["aa"], qt["zsse"], qt["conf"], b["aa"], b["zsse"],
+                    b["conf"], float(np.float32(params.alpha)))
 
 
 def ragged_flags(params) -> dict:
@@ -354,11 +503,13 @@ def ragged_flags(params) -> dict:
 
 def screen_buckets(qt: dict, library: "DeviceLibrary", params) -> list:
     """K3's ragged input for the whole library: per bucket (S, D, A, B,
-    None), S from K5 and K6 on the library's device (launched per bucket,
-    no host sync); ``dp_scores.dp_general_ragged`` takes the list with
+    None), S from K5 (one launch per bucket) and then K6 (one launch over
+    every bucket) on the library's device, no host sync;
+    ``dp_scores.dp_general_ragged`` takes the list with
     :func:`ragged_flags`."""
-    return [(_similarity(qt, b, params), b["D"], b["A"], b["B"], None)
-            for b in library.buckets.values()]
+    buckets = list(library.buckets.values())
+    Ss = _znorm([_raw_similarity(qt, b, params) for b in buckets], params)
+    return [(S, b["D"], b["A"], b["B"], None) for S, b in zip(Ss, buckets)]
 
 
 def bucket_tables(qt: dict, b: dict, params):
@@ -366,10 +517,37 @@ def bucket_tables(qt: dict, b: dict, params):
     S, then ``dp_scores.prepare_tables`` rebuilds D from the gap vectors
     and builds the insertion tables there (the input of
     ``dp_scores.dp_general``)."""
-    f = ragged_flags(params)
+    S, = _znorm([_raw_similarity(qt, b, params)], params)
     return dp_scores.prepare_tables(
-        _similarity(qt, b, params), b["D"], b["A"], b["B"],
-        torch.zeros_like(b["A"]), has_c=False, vec_d=True, **f)
+        S, b["D"], b["A"], b["B"], torch.zeros_like(b["A"]), has_c=False,
+        vec_d=True, **ragged_flags(params))
+
+
+def _k7_costs(bucket, params) -> list:
+    """Each pair's host ``DPCosts`` of a :func:`screen_buckets` bucket, as
+    the JAX package's ``hmap_device._scores_xla`` (:288-309) builds them:
+    S pulled from the device, the deletion table of the min-paired gap
+    vectors."""
+    S, G, A, B = (x.cpu().numpy() for x in bucket[:4])
+    at = AlignT(params.align_type)
+    zh, zt = ins_zero_flags(at)
+    return [DPCosts(S=S[i], D=affine_deletion_table(
+                        np.minimum.outer(G[i, 0], G[i, 0]),
+                        np.minimum.outer(G[i, 1], G[i, 1]), at),
+                    A=A[i], B=B[i], ins_zero_head_q=zh,
+                    ins_zero_tail_q=zt, del_gi_vec=G[i, 0],
+                    del_ge_vec=G[i, 1], del_align=at)
+            for i in range(S.shape[0])]
+
+
+def _scores_k7(bucket, params, device) -> np.ndarray:
+    """The scores of a bucket K3 cannot hold, as the JAX package scores an
+    oversized bucket: :func:`_k7_costs` built exactly by
+    ``dp_engine.build_forward_batched`` (K7 on the card), H[-1, -1] per
+    pair."""
+    res = dp_engine.build_forward_batched(_k7_costs(bucket, params),
+                                          device=device)
+    return np.asarray([r.H[-1, -1] for r in res], np.float32)
 
 
 def screen_hmap_device(query, templates, params, k: int = 10,
@@ -379,20 +557,30 @@ def screen_hmap_device(query, templates, params, k: int = 10,
     on ``device``; scores bit-identical to the JAX package's
     ``screen_profiles`` with an ``HMAPaliEval`` factory.
 
-    K5 and K6 per length bucket (:func:`screen_buckets`), then K3 once
-    over the whole library and one copy of the scores to the host.
-    Returns (scores float32 (N,), top-k indices, score descending then
-    index ascending)."""
+    K5 per length bucket and K6 once (:func:`screen_buckets`), then K3 once
+    over every bucket whose t2 it holds (``dp_scores.vec_max_t2``: all of
+    them on the CPU) and one copy of the scores to the host; a longer
+    template's bucket goes to K7 (:func:`_scores_k7`).  Returns (scores
+    float32 (N,), top-k indices, score descending then index
+    ascending)."""
     device = torch.device(device)
     if ev is None:
         ev = HMAPaliEval(params)
     if library is None:
         library = DeviceLibrary(templates, ev, device=device)
     qt = query_tensors(query, device)
-    out = dp_scores.dp_general_ragged(screen_buckets(qt, library, params),
-                                      **ragged_flags(params))
+    cap = dp_scores.vec_max_t2(device)
     scores = np.zeros(len(library.templates), np.float32)
-    scores[[i for b in library.buckets.values() for i in b["idx"]]] = \
-        out.cpu().numpy()
+    fits, big = [], []
+    for bk, b in zip(screen_buckets(qt, library, params),
+                     library.buckets.values()):
+        (fits if cap is None or bk[0].shape[2] <= cap else big).append(
+            (bk, b["idx"]))
+    if fits:
+        out = dp_scores.dp_general_ragged([bk for bk, _ in fits],
+                                          **ragged_flags(params))
+        scores[[i for _, idx in fits for i in idx]] = out.cpu().numpy()
+    for bk, idx in big:
+        scores[idx] = _scores_k7(bk, params, device)
     order = np.lexsort((np.arange(len(scores)), -scores))[:k]
     return scores, order

@@ -36,21 +36,27 @@
    K3 (scores and full-H modes, global and local, HMAP vec_d tables and
    full-D tables with a C term, odd shapes and full-size buckets) against
    its plain version and against the numpy ``dp_ref`` engine on 2 pairs,
-   K5 and K6 against theirs on 2 buckets, and K5 + K6 against the host
-   ``HMAPaliEval.build_costs`` S for 16 templates, all with tolerance 0.
+   K5 against its plain version on 2 buckets, K6 (one launch over every
+   bucket, as the screen runs it) against its plain version on the whole
+   library and on odd shapes (a 1 x 1 region, 1 x 698, past 2^17
+   elements, a first element of -0.0, a constant region), normalize on and
+   off, and K5 + K6 against the host ``HMAPaliEval.build_costs`` S for 16
+   templates, all with tolerance 0.
    Then ``aat_screen --profiles 1`` over the 1024 templates (the homologs
    must rank 1-8; K3, K5 and K6 must launch), the same CLI on the first 64
    templates on the card and with ``AAT_TORCH_DEVICE=cpu`` (byte-equal
    stdout), and ``--smap 1`` on the repository's SMAP fixtures on the card
    and on the CPU (byte-equal stdout).  The screen launches K3 once, over
    the whole library (its ragged wrapper, the costs built in the kernel
-   from the gap vectors), and K5 and K6 once per length bucket: the run
-   fails on other counts.  K3's whole-library launch is held against its
-   plain version bit for bit (an int32 view, NaN at the same places), as
-   are all K3 comparisons.  Times K3 on the whole library (beside its
+   from the gap vectors), K5 once per length bucket and K6 once: the run
+   fails on other counts.  A last screen has a 7,300-residue template,
+   past K3's shared-memory cap: K7 must score its bucket and every score
+   must equal host ``build_costs`` + ``dp_ref``.  K3 and K6 are held
+   against their plain versions bit for bit (an int32 view, NaN at the
+   same places).  Times K3 on the whole library (beside its
    bound), on a full bucket and on a 64-pair 258 x 258 batch (each as a
-   ragged launch and in the table form), and K5 + K6 on a full bucket,
-   each against its plain version.
+   ragged launch and in the table form), K5 on a full bucket, and K6 on
+   the whole library and on a full bucket, each against its plain version.
 6. The exact DP builds behind the alignment tools.  Holds K7 (H, PQ and PT)
    against its plain version on odd shapes, three sub-rectangles, a
    bounded 130 x 97 build and a 386 x 404 pair, on random, Gn2-style,
@@ -118,6 +124,12 @@ GN2_PRODUCTION = ["--NUM_SUBOPT", "1000", "--DELTA_RATIO", "0.20",
 # rows (R = 16 from Q = 257 on), a longer query runs in chunks of 512
 SW_EDGES = [(1, 1, 1), (511, 45, 33), (513, 39, 33), (1031, 77, 33),
             (40, 37, 5120)]
+# K6's odd shapes (n, q2, t2): a 1 x 1 region, 1 x 698, past 2^17 region
+# elements, then a bucket whose first element is -0.0 and a constant region
+K6_EDGES = [(2, 3, 3), (1, 3, 700), (1, 300, 450), (3, 5, 6), (2, 6, 9)]
+# a screen past K3's shared-memory cap (t2 7,200): a 30-residue query
+# against ordinary templates and one of 7,300 residues
+BIG_Q, BIG_TEMPLATES = 30, (40, 61, 90, 61, 7300)
 # published H100 SXM rates: HBM bytes per second; float32 and float64
 # lanes per SM, each one operation per clock
 HBM_BYTES_PER_S = 3.35e12
@@ -491,14 +503,20 @@ def k3_work(shapes) -> tuple:
     return nbytes, ops
 
 
+def random_stack(rng, n, q2, t2) -> np.ndarray:
+    """A random similarity stack (n, q2, t2) with zero borders."""
+    S = (rng.standard_normal((n, q2, t2)) * 2.0).astype(np.float32)
+    S[:, [0, -1], :] = 0.0
+    S[:, :, [0, -1]] = 0.0
+    return S
+
+
 def random_dp_inputs(rng, n, q2, t2, dev, *, vec_d: bool):
     """Per-pair K3 data from random numbers, on ``dev``: S with zero
     borders, HMAP-style gap vectors (n, 2, t2) or a Gn2-style full D, A, B
     and a C term."""
     import torch
-    S = (rng.standard_normal((n, q2, t2)) * 2.0).astype(np.float32)
-    S[:, [0, -1], :] = 0.0
-    S[:, :, [0, -1]] = 0.0
+    S = random_stack(rng, n, q2, t2)
     gi = rng.uniform(0.5, 5.0, (n, t2)).astype(np.float32)
     ge = rng.uniform(0.05, 1.0, (n, t2)).astype(np.float32)
     D = (np.stack([gi, ge], axis=1) if vec_d else
@@ -620,13 +638,47 @@ def check_profile_kernels(dev, qfn, lib_dir, homologs, cli):
         torch.cuda.synchronize()
         assert same(raw, want), f"K5 != plain at t2={t2}"
         err["k5"] = max(err["k5"], max_abs(raw, want))
+    log(f"K5 equals plain on the buckets t2={near} and t2={longest}")
+
+    # K6 as the main path launches it: once over every bucket's K5 output;
+    # the plain version (every chain in one loop) timed on its one run
+    raws = [hd.hmap_sim(qt["aa"], qt["zsse"], qt["conf"], b["aa"],
+                        b["zsse"], b["conf"], alpha)
+            for b in library.buckets.values()]
+
+    def k6_vs_plain(Ss, tag):
         for normalize in (True, False):
-            got = hd.hmap_znorm(raw, shift, normalize=normalize)
-            want = hd.hmap_znorm_plain(raw, shift, normalize=normalize)
+            got = hd.hmap_znorm_ragged(Ss, shift, normalize=normalize)
             torch.cuda.synchronize()
-            assert same(got, want), f"K6 != plain at t2={t2} ({normalize})"
-            err["k6"] = max(err["k6"], max_abs(got, want))
-    log(f"K5 and K6 equal plain on the buckets t2={near} and t2={longest}")
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = hd.hmap_znorm_ragged_plain(Ss, shift, normalize=normalize)
+            stop.record()
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert same_bits(g, w), f"K6 != plain: {tag} " \
+                    f"{tuple(g.shape)} normalize={normalize}"
+                err["k6"] = max(err["k6"], max_abs(g, w))
+            if normalize:
+                plain_ms = start.elapsed_time(stop)
+        return plain_ms
+
+    k6_plain_ms = k6_vs_plain(raws, "the whole library")
+    log(f"K6 equals plain as float32 bits on the whole library in one "
+        f"launch ({sum(S.shape[0] for S in raws)} pairs, {len(raws)} "
+        f"buckets), normalize on and off")
+    edge = [random_stack(rng, *shape) for shape in K6_EDGES]
+    edge[3][:, 1, 1] = -0.0
+    edge[3][1, 1:-1, 1:-1] = -0.0
+    edge[4][:, 1:-1, 1:-1] = np.float32(1.7)
+    edge = [torch.from_numpy(x).to(dev) for x in edge]
+    k6_vs_plain(edge, "odd shapes")
+    for S in edge:
+        k6_vs_plain([S], "odd shapes, alone")
+    log(f"K6 equals plain as float32 bits on odd shapes {K6_EDGES} (a 1 x 1 "
+        f"region, 1 x 698, past 2^17 elements, a first element of -0.0, a "
+        f"constant region), together and alone, normalize on and off")
 
     host_checked = 0
     for t2, b in library.buckets.items():
@@ -680,8 +732,17 @@ def check_profile_kernels(dev, qfn, lib_dir, homologs, cli):
     raw = hd.hmap_sim(*args)
     k5_ms = cuda_ms(lambda: hd.hmap_sim(*args), 5)
     k5_plain_ms = cuda_ms(lambda: hd.hmap_sim_plain(*args), 1)
-    k6_ms = cuda_ms(lambda: hd.hmap_znorm(raw, shift), 5)
-    k6_plain_ms = cuda_ms(lambda: hd.hmap_znorm_plain(raw, shift), 1)
+    # K6: the whole library in one launch and the timed bucket alone,
+    # through the wrapper and as the launch alone (its descriptors built
+    # once; normalize=False runs the apply pass alone)
+    k6_ms = cuda_ms(lambda: hd.hmap_znorm_ragged(raws, shift), 5)
+    k6_times = {
+        "screen_launch_ms": k6_launch_ms(raws, shift, True),
+        "screen_apply_only_launch_ms": k6_launch_ms(raws, shift, False),
+        "bucket_ms": cuda_ms(lambda: hd.hmap_znorm(raw, shift), 5),
+        "bucket_launch_ms": k6_launch_ms([raw], shift, True),
+        "bucket_plain_ms": cuda_ms(lambda: hd.hmap_znorm_plain(raw, shift),
+                                   1)}
     shape = f"{len(b['idx'])}x{query.size()}x{near}"
     screen_bound = bound(*k3_work(screen_shapes))
     log(f"K3 whole screen ({n_pairs} pairs, one launch): {k3_ms:.3f} ms "
@@ -694,8 +755,14 @@ def check_profile_kernels(dev, qfn, lib_dir, homologs, cli):
         f"{times['64x258x258_ragged_ms']:.3f} ms, table form "
         f"{times['64x258x258_table_ms']:.3f} ms, plain "
         f"{times['64x258x258_plain_ms']:.3f} ms")
-    log(f"K5 {k5_ms:.3f} ms vs plain {k5_plain_ms:.3f} ms, K6 {k6_ms:.3f} "
-        f"ms vs plain {k6_plain_ms:.3f} ms on {shape}")
+    log(f"K5 {k5_ms:.3f} ms vs plain {k5_plain_ms:.3f} ms on {shape}")
+    log(f"K6 whole screen ({n_pairs} pairs, one launch): {k6_ms:.3f} ms "
+        f"through the wrapper, {k6_times['screen_launch_ms']:.3f} ms the "
+        f"launch alone (its apply pass alone "
+        f"{k6_times['screen_apply_only_launch_ms']:.3f} ms), plain "
+        f"{k6_plain_ms:.3f} ms; on {shape}: {k6_times['bucket_ms']:.3f} ms "
+        f"through the wrapper, {k6_times['bucket_launch_ms']:.3f} ms the "
+        f"launch alone, plain {k6_times['bucket_plain_ms']:.3f} ms")
     return ({"k3": (err["k3"], k3_ms, screen_plain_ms),
              "k5": (err["k5"], k5_ms, k5_plain_ms),
              "k6": (err["k6"], k6_ms, k6_plain_ms)},
@@ -703,7 +770,23 @@ def check_profile_kernels(dev, qfn, lib_dir, homologs, cli):
              "screen_shapes": screen_shapes,
              "screen": f"{n_pairs} pairs in {len(buckets)} buckets, "
                        f"q2={query.size()}",
-             "k3_times": times})
+             "k3_times": times, "k6_times": k6_times})
+
+
+def k6_launch_ms(Ss, shift: float, normalize: bool) -> float:
+    """K6's launch alone over the stacks ``Ss`` (its plan, the descriptors
+    on the card, made once by the wrapper's own steps), mean of 5; its
+    output must equal the wrapper's as float32 bits."""
+    import torch
+    from alignment_algos_tpu_torch.ops import hmap_device as hd
+
+    plan = hd._znorm_plan(Ss)
+    ms = cuda_ms(lambda: hd._znorm_launch(plan, shift, normalize), 5)
+    want = hd.hmap_znorm_ragged(Ss, shift, normalize=normalize)
+    torch.cuda.synchronize()
+    assert all(same_bits(o, w) for o, w in zip(plan.outs, want)), \
+        "K6 launch alone != the wrapper's"
+    return ms
 
 
 def run_profile_screens(cli, d, qfn, lib_dir, files, homologs, card):
@@ -718,7 +801,7 @@ def run_profile_screens(cli, d, qfn, lib_dir, files, homologs, card):
         return ds.dp_general_ragged.launches + ds.dp_general.launches
 
     counters = (ds.dp_general_ragged, ds.dp_general, hd.hmap_sim,
-                hd.hmap_znorm)
+                hd.hmap_znorm_ragged)
     query, templates, _ = cli.read_profiles(qfn, lib_dir)
     q2 = query.size()
     evals = sum(q2 * t.size() * (q2 + t.size()) for t in templates)
@@ -728,11 +811,11 @@ def run_profile_screens(cli, d, qfn, lib_dir, files, homologs, card):
     out, wall = run_cli(cli.main, [qfn, lib_dir, "--profiles", "1",
                                    "--top_k", str(TOP_K)])
     launches = {"k3": k3_launches(), "k5": hd.hmap_sim.launches,
-                "k6": hd.hmap_znorm.launches}
-    # one K3 launch per screen, the ragged one; K5 and K6 once per bucket
+                "k6": hd.hmap_znorm_ragged.launches}
+    # one K3 launch per screen, the ragged one; K5 once per bucket, K6 once
     assert (ds.dp_general_ragged.launches, ds.dp_general.launches) == (1, 0), \
         launches
-    assert launches["k5"] == launches["k6"] == n_buckets, launches
+    assert launches["k5"] == n_buckets and launches["k6"] == 1, launches
     rows = rows_of(out)
     assert len(rows) == TOP_K, out
     assert {r[3] for r in rows[:N_HOMOLOGS]} == set(homologs), rows
@@ -775,6 +858,63 @@ def run_profile_screens(cli, d, qfn, lib_dir, files, homologs, card):
             f"(card {gpu_wall:.3f} s, host CPU {cpu_wall:.3f} s)")
     return launches, {"profiles_wall_s": wall, "candidate_evals": evals,
                       "evals_per_s": evals / wall}
+
+
+def run_big_template_screen(cli, d, dev, card):
+    """``--profiles 1`` past K3's shared-memory cap: a BIG_Q-residue query
+    profile against BIG_TEMPLATES (one of 7,300 residues) from the seed.
+    K3 scores the buckets it holds in one launch and K7 the long one; the
+    run fails on other counts.  Every score, through ``screen_profiles``,
+    equals the host ``HMAPaliEval.build_costs`` + ``dp_ref`` as float32
+    bits, and the CLI prints those scores in that order."""
+    from alignment_algos_tpu_torch.ops import dp_engine as de
+    from alignment_algos_tpu_torch.ops import dp_pallas as dpp
+    from alignment_algos_tpu_torch.ops import dp_scores as ds
+    from alignment_algos_tpu_torch.ops import hmap_device as hd
+    from alignment_algos_tpu_torch.parallel.screen import screen_profiles
+
+    rng = np.random.default_rng(SEED + 4)
+    qfn, lib = os.path.join(d, "big_query.prof"), os.path.join(d, "big_lib")
+    os.makedirs(lib)
+    with open(qfn, "w") as f:
+        f.write(_profile_text("big_query", _residues(rng, BIG_Q)))
+    for n, length in enumerate(BIG_TEMPLATES):
+        with open(os.path.join(lib, f"b{n}.prof"), "w") as f:
+            f.write(_profile_text(f"b{n}", _residues(rng, length)))
+    cap = ds.vec_max_t2(dev)
+    assert max(BIG_TEMPLATES) + 2 > cap >= 2 + sorted(BIG_TEMPLATES)[-2], cap
+    counters = (ds.dp_general_ragged, ds.dp_general, hd.hmap_sim,
+                hd.hmap_znorm_ragged, de.dp_forward_tb)
+    for fn in counters:
+        fn.launches = 0
+    k = len(BIG_TEMPLATES)
+    out, wall = run_cli(cli.main, [qfn, lib, "--profiles", "1", "--top_k",
+                                   str(k)])
+    got = tuple(fn.launches for fn in counters)
+    # K3 once, K5 per bucket, K6 once, K7 for the long bucket
+    assert got == (1, 0, len(set(BIG_TEMPLATES)), 1, 1), got
+    query, templates, _ = cli.read_profiles(qfn, lib)
+    params = hd.HMAPaliParams()
+    ev = hd.HMAPaliEval(params)
+    t0 = time.perf_counter()
+    want = np.asarray([dpp.forward_h_reference([ev.build_costs(query, t)])
+                       [0, -1, -1] for t in templates], np.float32)
+    ref_s = time.perf_counter() - t0
+    scores, order = screen_profiles(
+        query, templates, lambda a, b: hd.HMAPaliEval(params), k=k,
+        device=dev)
+    assert (scores.view(np.uint32) == want.view(np.uint32)).all(), \
+        (scores, want)
+    rows = rows_of(out)
+    assert [int(r[2]) for r in rows] == list(order), rows
+    assert [r[1] for r in rows] == [f"{want[i]:g}" for i in order], rows
+    log(f"--profiles 1 past K3's cap (t2 {cap}): a {BIG_Q}-residue query vs "
+        f"templates of {BIG_TEMPLATES} residues: wall {wall:.3f} s (K3 "
+        f"+{got[0]}, K5 +{got[2]}, K6 +{got[3]}, K7 +{got[4]} launches); "
+        f"every score equals dp_ref as float32 bits (host build_costs + "
+        f"dp_ref {ref_s:.3f} s) on {card}")
+    return {"big_template_wall_s": wall, "big_template_dp_ref_s": ref_s,
+            "k3_vec_max_t2": cap}
 
 
 # -------------------------------------- the exact DP builds behind the tools
@@ -1142,6 +1282,7 @@ def main() -> int:
         prof_launches, prof_run = run_profile_screens(
             cli, d, qfn, lib_dir, files, hom_files, card)
         launches.update(prof_launches)
+        prof_run.update(run_big_template_screen(cli, d, dev, card))
 
         # phase 6: the exact DP builds behind the alignment tools
         na_files = make_nalign_pair(d)
@@ -1180,7 +1321,20 @@ def main() -> int:
     ka, ks = 20, 3                           # profile and SSE widths
     k5_bound = bound(4 * ((q2 + n * t2) * (ka + ks + 1) + n * q2 * t2),
                      (2 * ka + 2 * ks + 5) * inner, 10 * inner)
-    k6_bound = bound(4 * (2 * n * q2 * t2 + 2 * n), 6 * inner)
+    # K6: the main path's launch, the whole library: each pair's region
+    # read once (nothing else of S is needed), the output written once; a
+    # multiply and two adds per region element (stats), a subtract, a
+    # divide and an add (apply).  Its chain floor, worked out from the
+    # shapes (the longest region's adds at an assumed 4 cycles each), is
+    # logged and not a field of the kernels line
+    shapes = prof_extra["screen_shapes"]
+    inner6 = sum(n * (q2 - 2) * (t2 - 2) for n, q2, t2 in shapes)
+    k6_bound = bound(4 * (inner6 + sum(n * q2 * t2 for n, q2, t2 in shapes)),
+                     6 * inner6)
+    k6_chain_ms = 4 * max((q2 - 2) * (t2 - 2) for _, q2, t2 in shapes) \
+        / k6_bound["sm_clock_hz"] * 1e3
+    log(f"k6: chain floor {k6_chain_ms:.6f} ms, worked out from the shapes "
+        f"(the longest region, an assumed 4 cycles an add), not measured")
     n, q2, t2 = k7_extra["dims"]
     ia, ib = q2 - 3, t2 - 3
     cand = n * ia * ib * (ia + ib - 2) / 2
@@ -1226,7 +1380,9 @@ def main() -> int:
          **row("k5"), "shape": prof_extra["bucket"]},
         {"name": "hmap_znorm_kernel (K6)", "route": "cuda", "source": K56_SRC,
          "replaces": "alignment_algos_tpu/ops/hmap_device.py:172",
-         **row("k6"), "shape": prof_extra["bucket"]},
+         **row("k6"), "shape": prof_extra["screen"],
+         "bucket": prof_extra["bucket"],
+         **prof_extra["k6_times"]},
         {"name": "dp_tb_kernel (K7)", "route": "cuda", "source": K7_SRC,
          "replaces": "alignment_algos_tpu/ops/dp_engine.py:37",
          "also_replaces": ["alignment_algos_tpu/ops/dp_engine.py:210"],

@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card: K1 (scores) and K2 (tracebacks) are
 bit-equal to their plain PyTorch versions, run on the same card, and K1
 agrees with the numpy Gotoh oracle; K3 (general-gap DP, both modes), K5
-(HMAP similarity) and K6 (z-norm) equal their plain versions, K3 equals the
-numpy ``dp_ref`` engine and K5 + K6 equal the host ``build_costs`` S; K8
+(HMAP similarity) and K6 (z-norm, one launch over many buckets) equal
+their plain versions, K3 equals the numpy ``dp_ref`` engine and K5 + K6
+equal the host ``build_costs`` S; a profile screen with a template past
+K3's shared-memory cap scores it on K7, equal to ``dp_ref``; K8
 (the traceback decode) equals its plain version and the numpy decode.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports only the port (no
@@ -419,8 +421,8 @@ def test_k5_k6_equal_plain_and_host(cuda, q_len, t_len, n, normalize):
     shift = float(-np.float32(params.zero_shift))
     S = hmap_device.hmap_znorm(raw, shift, normalize=normalize)
     torch.cuda.synchronize()
-    assert _same(S, hmap_device.hmap_znorm_plain(raw, shift,
-                                                 normalize=normalize))
+    assert _same_bits(S, hmap_device.hmap_znorm_plain(raw, shift,
+                                                      normalize=normalize))
     S = S.cpu().numpy()
     for i, t in enumerate(templates):
         host = ev.build_costs(query, t).S
@@ -444,10 +446,12 @@ def test_new_wrappers_count_launches_and_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         dp_scores.dp_general(tabs[0].transpose(1, 2), *tabs[1:])
     S = torch.rand((2, 9, 8), device=cuda)
-    n5, n6 = hmap_device.hmap_sim.launches, hmap_device.hmap_znorm.launches
+    n5 = hmap_device.hmap_sim.launches
+    n6 = hmap_device.hmap_znorm_ragged.launches
     hmap_device.hmap_znorm(S, -0.12)
     hmap_device.hmap_znorm(S, -0.12, normalize=False)
-    assert hmap_device.hmap_znorm.launches == n6 + 2
+    hmap_device.hmap_znorm_ragged([S, S[:1].contiguous()], -0.12)
+    assert hmap_device.hmap_znorm_ragged.launches == n6 + 3
     with pytest.raises(TypeError):
         hmap_device.hmap_znorm(S.double(), -0.12)
     q = torch.rand((9, 20), device=cuda)
@@ -462,6 +466,97 @@ def test_new_wrappers_count_launches_and_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         hmap_device.hmap_sim(q, zq, cq, t[:, :, :19].contiguous(), zt, ct,
                              0.5)
+
+
+def _znorm_stacks(rng, shapes):
+    """Random similarity stacks of the given (n, q2, t2), borders zeroed."""
+    out = []
+    for n, q2, t2 in shapes:
+        S = (rng.standard_normal((n, q2, t2)) * 1.5 + 0.3).astype(np.float32)
+        S[:, [0, -1], :] = 0.0
+        S[:, :, [0, -1]] = 0.0
+        out.append(S)
+    return out
+
+
+def _znorm_edge_stacks(dev):
+    """A 1 x 1 region, a 1 x 698 one, a pair past 2^17 region elements, a
+    bucket whose first region element is -0.0 (one pair all -0.0), a
+    constant region (std 0), NaN and inf, and a full 5 x 258 x 258
+    bucket."""
+    rng = np.random.default_rng(21)
+    tiny, row, big, negz, const, odd, full = _znorm_stacks(
+        rng, [(2, 3, 3), (1, 3, 700), (1, 300, 450), (3, 5, 6), (2, 6, 9),
+              (2, 7, 5), (5, 258, 258)])
+    negz[:, 1, 1] = -0.0
+    negz[1, 1:-1, 1:-1] = -0.0
+    const[:, 1:-1, 1:-1] = np.float32(1.7)
+    odd[0, 2, 2], odd[1, 3, 1] = np.nan, np.inf
+    return [torch.from_numpy(x).to(dev)
+            for x in (tiny, row, big, negz, const, odd, full)]
+
+
+def _k6_vs_plain(Ss, normalize):
+    got = hmap_device.hmap_znorm_ragged(Ss, -0.12, normalize=normalize)
+    want = hmap_device.hmap_znorm_ragged_plain(Ss, -0.12, normalize=normalize)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == len(Ss)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert _same_bits(g, w), (i, tuple(g.shape), normalize)
+    return got
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_k6_ragged_equals_plain_on_edge_shapes(cuda, normalize):
+    Ss = _znorm_edge_stacks(cuda)
+    n6 = hmap_device.hmap_znorm_ragged.launches
+    got = _k6_vs_plain(Ss, normalize)
+    assert hmap_device.hmap_znorm_ragged.launches == n6 + 1
+    # each stack alone, as the one-bucket wrapper launches it
+    for S, g in zip(Ss, got):
+        assert _same_bits(hmap_device.hmap_znorm(S, -0.12,
+                                                 normalize=normalize), g)
+        assert _same_bits(g, hmap_device.hmap_znorm_plain(
+            S, -0.12, normalize=normalize))
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_k6_ragged_equals_plain_on_a_64_bucket_library(cuda, normalize):
+    """64 buckets of 1-6 pairs, q2 258 and t2 130-386, in one launch."""
+    rng = np.random.default_rng(22)
+    widths = rng.choice(np.arange(130, 387), 64, replace=False)
+    shapes = [(int(rng.integers(1, 7)), 258, int(t2)) for t2 in widths]
+    Ss = [torch.from_numpy(x).to(cuda)
+          for x in _znorm_stacks(rng, shapes)]
+    _k6_vs_plain(Ss, normalize)
+
+
+def test_screen_with_a_template_past_k3_cap(cuda):
+    """A 7,300-residue template (past K3's vector-form cap of 7,200) among
+    ordinary ones: the screen does not raise, scores that bucket on K7 and
+    the rest in one K3 launch, and every score equals ``dp_ref`` on the
+    host costs."""
+    from alignment_algos_tpu_torch.ops import dp_engine
+    from alignment_algos_tpu_torch.scoring.hmap_eval import HMAPaliEval
+    from alignment_algos_tpu_torch.utils.params import HMAPaliParams
+    cap = dp_scores.vec_max_t2(cuda)
+    assert 7200 <= cap < 7302, cap
+    rng = np.random.default_rng(23)
+    query, *templates = _profiles(rng, [30, 41, 55, 41, 7300])
+    params = HMAPaliParams()
+    ev = HMAPaliEval(params)
+    n3 = dp_scores.dp_general_ragged.launches
+    n7 = dp_engine.dp_forward_tb.launches
+    scores, order = hmap_device.screen_hmap_device(
+        query, templates, params, k=4, ev=ev, device=cuda)
+    assert dp_scores.dp_general_ragged.launches == n3 + 1
+    assert dp_engine.dp_forward_tb.launches == n7 + 1
+    want = np.asarray([dp_pallas.forward_h_reference(
+        [ev.build_costs(query, t)])[0, -1, -1] for t in templates],
+        np.float32)
+    np.testing.assert_array_equal(scores.view(np.uint32),
+                                  want.view(np.uint32))
+    assert list(order) == list(np.lexsort((np.arange(4), -want)))
 
 
 def test_k5_expf_replica_exhaustive(cuda):

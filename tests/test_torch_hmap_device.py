@@ -295,7 +295,8 @@ def test_k5_k6_wrappers_route_cpu_tensors_to_the_plain_versions():
           for k, v in hmap_device.pack_sequence(seqs[0]).items()}
     args = (qp["aa"], qp["zsse"], qp["conf"], b["aa"], b["zsse"], b["conf"],
             0.5)
-    n5, n6 = hmap_device.hmap_sim.launches, hmap_device.hmap_znorm.launches
+    n5 = hmap_device.hmap_sim.launches
+    n6 = hmap_device.hmap_znorm_ragged.launches
     raw = hmap_device.hmap_sim(*args)
     assert torch.equal(raw, hmap_device.hmap_sim_plain(*args))
     for normalize in (True, False):
@@ -303,9 +304,231 @@ def test_k5_k6_wrappers_route_cpu_tensors_to_the_plain_versions():
             hmap_device.hmap_znorm(raw, -0.12, normalize=normalize),
             hmap_device.hmap_znorm_plain(raw, -0.12, normalize=normalize))
     assert (hmap_device.hmap_sim.launches,
-            hmap_device.hmap_znorm.launches) == (n5, n6)
+            hmap_device.hmap_znorm_ragged.launches) == (n5, n6)
     with pytest.raises(TypeError):
         hmap_device.hmap_znorm(raw.double(), -0.12)
     with pytest.raises(ValueError):
         hmap_device.hmap_sim(*args[:3], b["aa"][:, :, :5].contiguous(),
                              *args[4:])
+
+
+# ------------------------------------------------- K6 over a whole screen
+
+def _library_texts(rng, normalize: bool):
+    """A query and templates over four lengths.  Their shapes repeat those
+    of the tests above (the ragged library with normalizing, the 24-residue
+    pair without), so that the JAX functions' compiled shapes are reused."""
+    if normalize:
+        texts = (_texts(rng, 1, 30) + _texts(rng, 2, 21) + _texts(rng, 2, 38)
+                 + _texts(rng, 1, 13) + _texts(rng, 1, 27))
+        return texts + [texts[3]]
+    return (_texts(rng, 1, 24) + _texts(rng, 2, 24) + _texts(rng, 1, 13)
+            + _texts(rng, 1, 27))
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_znorm_ragged_equals_jax_bucket_by_bucket(normalize):
+    """One K6 call over the length buckets of a library (its plain version
+    here) equals the JAX package's ``build_similarity_device`` of each
+    bucket bit for bit, and the launch count stays where it was."""
+    rng = np.random.default_rng(12 if normalize else 13)
+    params = HMAPaliParams()
+    params.normalize_mtx = normalize
+    texts = _library_texts(rng, normalize)
+    query, *templates = _parse(texts)
+    mq, *mts = _parse(texts, thmap.HMAPSequence)
+    mparams = _port_params(params)
+    lib = hmap_device.DeviceLibrary(mts, thmap_eval.HMAPaliEval(mparams),
+                                    device=CPU)
+    assert len(lib.buckets) >= 3
+    qt = hmap_device.query_tensors(mq, CPU)
+    raw = [hmap_device._raw_similarity(qt, b, mparams)
+           for b in lib.buckets.values()]
+    n6 = hmap_device.hmap_znorm_ragged.launches
+    got = hmap_device.hmap_znorm_ragged(
+        raw, float(-np.float32(params.zero_shift)), normalize=normalize)
+    assert hmap_device.hmap_znorm_ragged.launches == n6
+    for S, b in zip(got, lib.buckets.values()):
+        want = _jax_similarity(query, [templates[i] for i in b["idx"]],
+                               params)
+        np.testing.assert_array_equal(_bits(S), _bits(want))
+
+
+def _edge_stacks():
+    """K6's edge inputs: a 1 x 1 region, a 1 x 698 one, a pair past 2^17
+    region elements, a bucket whose first region element is -0.0, a
+    constant region (std 0) and a stack with NaN and inf."""
+    rng = np.random.default_rng(14)
+
+    def stack(n, q2, t2):
+        S = (rng.standard_normal((n, q2, t2)) * 1.5 + 0.3).astype(np.float32)
+        S[:, [0, -1], :] = 0.0
+        S[:, :, [0, -1]] = 0.0
+        return S
+
+    tiny, row, big = stack(2, 3, 3), stack(1, 3, 700), stack(1, 300, 450)
+    negz = stack(3, 5, 6)
+    negz[:, 1, 1] = -0.0
+    negz[1, 1:-1, 1:-1] = -0.0
+    const = stack(2, 6, 9)
+    const[:, 1:-1, 1:-1] = np.float32(1.7)
+    odd = stack(2, 7, 5)
+    odd[0, 2, 2], odd[1, 3, 1] = np.nan, np.inf
+    return [torch.from_numpy(x) for x in (tiny, row, big, negz, const, odd)]
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_znorm_ragged_equals_per_bucket_plain_on_edge_inputs(normalize):
+    """The ragged plain version (every pair's chain in one loop over
+    regions padded with +0.0) equals ``hmap_znorm_plain`` of each stack
+    bit for bit: the padding changes no chain."""
+    Ss = _edge_stacks()
+    assert (Ss[2].shape[1] - 2) * (Ss[2].shape[2] - 2) > 2 ** 17
+    n6 = hmap_device.hmap_znorm_ragged.launches
+    got = hmap_device.hmap_znorm_ragged(Ss, -0.12, normalize=normalize)
+    assert hmap_device.hmap_znorm_ragged.launches == n6
+    assert len(got) == len(Ss)
+    for S, g in zip(Ss, got):
+        want = hmap_device.hmap_znorm_plain(S, -0.12, normalize=normalize)
+        assert g.shape == S.shape and g.data_ptr() != S.data_ptr()
+        np.testing.assert_array_equal(_bits(g), _bits(want))
+    if normalize:
+        assert torch.isnan(got[4][:, 1:-1, 1:-1]).all()    # 0 / 0
+        assert torch.isnan(got[5][:, 1:-1, 1:-1]).all()    # NaN, inf mean
+        # a region of -0.0: its mean is +0.0 (the chain starts at +0.0)
+        avg, _ = hmap_device._znorm_stats_plain([Ss[3][1:2]])
+        assert avg.item() == 0.0 and not np.signbit(avg.item())
+
+
+def test_znorm_plain_stats_walk_blocks_of_the_live_pairs(monkeypatch):
+    """A long stack among many short ones: the plain stats walk
+    ``STATS_BLOCK`` chain steps at a time of the pairs whose regions reach
+    the block, so that their scratch is bounded by the block, not by the
+    longest region x every pair; the stats equal hmath.seq_sum_f32 of each
+    region and the output equals each stack's ``hmap_znorm_plain``."""
+    rng = np.random.default_rng(16)
+
+    def stack(n, q2, t2):
+        S = (rng.standard_normal((n, q2, t2)) * 1.5 + 0.3).astype(np.float32)
+        S[:, [0, -1], :] = 0.0
+        S[:, :, [0, -1]] = 0.0
+        return torch.from_numpy(S)
+
+    Ss = [stack(40, 5, 6), stack(1, 3, 2602), stack(30, 4, 9),
+          stack(2, 20, 70), stack(25, 3, 3)]
+    monkeypatch.setattr(hmap_device, "STATS_BLOCK", 700)
+    walked = []
+    sums = hmap_device.serial_sums
+
+    def spy(v, *a):
+        walked.append(tuple(v.shape))
+        return sums(v, *a)
+
+    monkeypatch.setattr(hmap_device, "serial_sums", spy)
+    avg, std = hmap_device._znorm_stats_plain(Ss)
+    # 2,600 steps in blocks of 700: the 2 x 18 x 68 pairs (1,224 each) leave
+    # after the second, every short one after the first
+    assert walked == [(98, 700), (3, 700), (1, 700), (1, 500)]
+    p = 0
+    for S in Ss:
+        v = S[:, 1:-1, 1:-1].reshape(S.shape[0], -1).numpy()
+        m = np.float32(v.shape[1])
+        want_avg = seq_sum_f32(v, axis=1) / m
+        var = seq_sum_f32(v * v, axis=1) / m - want_avg * want_avg
+        want_std = np.sqrt(var.astype(np.float64)).astype(np.float32)
+        np.testing.assert_array_equal(_bits(avg[p:p + len(v)]),
+                                      _bits(want_avg))
+        np.testing.assert_array_equal(_bits(std[p:p + len(v)]),
+                                      _bits(want_std))
+        p += len(v)
+    assert p == avg.shape[0] == std.shape[0]
+    monkeypatch.setattr(hmap_device, "serial_sums", sums)
+    got = hmap_device.hmap_znorm_ragged(Ss, -0.12)
+    for S, g in zip(Ss, got):
+        np.testing.assert_array_equal(
+            _bits(g), _bits(hmap_device.hmap_znorm_plain(S, -0.12)))
+
+
+def test_znorm_descriptors_cover_every_pair_longest_first():
+    """K6's descriptors (built on the CPU here, as the card's wrapper
+    builds them): one per pair, its S and output addresses, longest
+    region first, and apply blocks that tile every pair once."""
+    Ss = _edge_stacks()
+    outs = [torch.empty_like(S) for S in Ss]
+    per_block = 4096
+    pairs, blocks = hmap_device._znorm_descriptors(Ss, outs, per_block)
+    assert pairs.dtype == hmap_device.ZPAIR_DTYPE
+    assert hmap_device.ZPAIR_DTYPE.itemsize == 32
+    region = (pairs["q2"].astype(np.int64) - 2) * (pairs["t2"] - 2)
+    assert (np.diff(region) <= 0).all()
+    want = {(S.data_ptr() + 4 * p * S.shape[1] * S.shape[2],
+             o.data_ptr() + 4 * p * S.shape[1] * S.shape[2],
+             S.shape[1], S.shape[2])
+            for S, o in zip(Ss, outs) for p in range(S.shape[0])}
+    got = {(int(a), int(b), int(q), int(t)) for a, b, q, t in
+           zip(pairs["S"], pairs["out"], pairs["q2"], pairs["t2"])}
+    assert got == want and len(pairs) == sum(S.shape[0] for S in Ss)
+    need = -(-(pairs["q2"].astype(np.int64) * pairs["t2"]) // per_block)
+    assert pairs["blk0"][0] == 0
+    assert (np.diff(pairs["blk0"]) == need[:-1]).all()
+    assert blocks == need.sum()
+
+
+def test_znorm_rejects_bad_input():
+    S = torch.zeros((2, 5, 6))
+    with pytest.raises(ValueError):
+        hmap_device.hmap_znorm_ragged([], -0.12)
+    with pytest.raises(TypeError):
+        hmap_device.hmap_znorm_ragged([S, S.double()], -0.12)
+    with pytest.raises(ValueError):
+        hmap_device.hmap_znorm_ragged([S[:, :2]], -0.12)
+    with pytest.raises(ValueError):
+        hmap_device.hmap_znorm_ragged([S.transpose(1, 2)], -0.12)
+
+
+# ------------------------------------- templates past K3's shared-memory cap
+
+def test_screen_past_k3_cap_takes_k7_and_equals_jax(monkeypatch):
+    """With K3's vector-form cap patched to t2 = 30, the bucket past it is
+    scored on K7 (its plain version here), as the JAX package scores a
+    bucket past its VMEM cap on ``dp_engine``: every score bit-equal to the
+    JAX ``screen_hmap_device`` and ``screen_profiles`` on the same files,
+    and the order equal."""
+    rng = np.random.default_rng(15)
+    params = HMAPaliParams()
+    texts = _library_texts(rng, True)
+    query, *templates = _parse(texts)
+    mq, *mts = _parse(texts, thmap.HMAPSequence)
+    mparams = _port_params(params)
+    monkeypatch.setattr(hmap_device.dp_scores, "vec_max_t2",
+                        lambda device: 30)
+    k7_shapes = []
+    build = hmap_device.dp_engine.build_forward_batched
+
+    def spy(costs, *a, **kw):
+        k7_shapes.append((len(costs), costs[0].q_size, costs[0].t_size))
+        return build(costs, *a, **kw)
+
+    monkeypatch.setattr(hmap_device.dp_engine, "build_forward_batched", spy)
+    k3_widths = []
+    ragged = hmap_device.dp_scores.dp_general_ragged
+
+    def k3_spy(buckets, **kw):
+        k3_widths.append(sorted(S.shape[2] for S, *_ in buckets))
+        return ragged(buckets, **kw)
+
+    monkeypatch.setattr(hmap_device.dp_scores, "dp_general_ragged", k3_spy)
+    scores, order = screen_profiles(
+        mq, mts, lambda a, b: thmap_eval.HMAPaliEval(mparams), k=7,
+        device=CPU)
+    assert k7_shapes == [(3, 32, 40)]
+    assert k3_widths == [[15, 23, 29]]
+    j_scores, j_order = jscreen(query, templates,
+                                lambda a, b: HMAPaliEval(params), k=7,
+                                engine="xla")
+    np.testing.assert_array_equal(_bits(scores), _bits(j_scores))
+    np.testing.assert_array_equal(order, j_order)
+    d_scores, d_order = jhd.screen_hmap_device(query, templates, params,
+                                               k=7, engine="xla")
+    np.testing.assert_array_equal(_bits(scores), _bits(d_scores))
+    np.testing.assert_array_equal(order, d_order)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K3, the exact general-gap DP, on the ``--profiles 1`` screen's inputs on
-one NVIDIA GPU.
+"""K3, the exact general-gap DP, and K6, the z-norm, on the ``--profiles
+1`` screen's inputs on one NVIDIA GPU.
 
     python3 tools/torch_k3_bench.py [--root DIR] [--reps 5]
 
@@ -13,6 +13,10 @@ then prints CUDA-event times (mean of ``--reps`` runs after a warm-up):
   ``screen_hmap_device`` runs it: one ragged launch over the whole library
   where the checkout has ``dp_scores.dp_general_ragged``, else one
   ``dp_general`` launch per bucket on cost tables built beforehand;
+- ``screen_k6_ms``: K6's part of one screen as the checkout runs it: one
+  ``hmap_znorm_ragged`` launch over every bucket's K5 output where the
+  checkout has it, else one ``hmap_znorm`` launch per bucket
+  (``k6_launches`` says which);
 - ``screen_ms``: the whole ``screen_hmap_device`` call (K5, K6, K3 and the
   score pull), by the host clock to a synchronize;
 - with the ragged wrapper, also ``screen_k3_launch_ms`` (that launch
@@ -20,6 +24,15 @@ then prints CUDA-event times (mean of ``--reps`` runs after a warm-up):
   form of the same library in one launch: the costs read from tables
   instead of built in the kernel) and ``table_per_bucket_ms`` (the table
   form, one launch per bucket), which split the redesign's steps apart.
+
+``--oversized T`` times, instead, the route of a template past K3's
+shared-memory cap: the seeded 256-residue query against one template of T
+residues (T + 2 above ``dp_scores.vec_max_t2``), its bucket built by
+``screen_buckets``, then per run (``--reps``) the host costs
+(``hmap_device._k7_costs``: S pulled, the T+2 x T+2 deletion table), K7's
+tables built and copied (``dp_engine.device_tables``), the K7 launch
+(CUDA events), the pull of H, PQ and PT, the whole ``_scores_k7`` and the
+whole ``screen_hmap_device`` (host clock to a synchronize).
 
 ``--root DIR`` imports the port from another checkout, for example the
 parent commit unpacked with ``git archive``, so that two versions are timed
@@ -37,11 +50,78 @@ import tempfile
 import time
 
 
+def oversized(length: int, reps: int, dev) -> dict:
+    """The ``--oversized`` times (see the module's doc), in seconds."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from alignment_algos_tpu_torch.cli import screen as cli
+    from alignment_algos_tpu_torch.ops import dp_engine as de
+    from alignment_algos_tpu_torch.ops import dp_scores as ds
+    from alignment_algos_tpu_torch.ops import hmap_device as hd
+
+    rng = np.random.default_rng(cs.SEED + 5)
+    with tempfile.TemporaryDirectory() as d:
+        qfn, lib = os.path.join(d, "q.prof"), os.path.join(d, "lib")
+        os.makedirs(lib)
+        for fn, name, n in ((qfn, "query", cs.Q_PROF),
+                            (os.path.join(lib, "long.prof"), "long", length)):
+            with open(fn, "w") as f:
+                f.write(cs._profile_text(name, cs._residues(rng, n)))
+        query, templates, _ = cli.read_profiles(qfn, lib)
+    params = hd.HMAPaliParams()
+    library = hd.DeviceLibrary(templates, hd.HMAPaliEval(params), device=dev)
+    qt = hd.query_tensors(query, dev)
+    bucket, = hd.screen_buckets(qt, library, params)
+    q2, t2 = bucket[0].shape[1:]
+    cap = ds.vec_max_t2(dev)
+    assert t2 > cap, (t2, cap)
+    res = {"oversized": f"1x{q2}x{t2}", "k3_vec_max_t2": cap,
+           "costs_s": [], "tables_copy_s": [], "k7_launch_ms": [],
+           "pull_s": [], "scores_k7_s": [], "screen_s": []}
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    bounds = dict(q0=0, q1=q2 - 1, t0=0, t1=t2 - 1)
+    for _ in range(reps):
+        costs, s = wall(lambda: hd._k7_costs(bucket, params))
+        res["costs_s"].append(s)
+        tensors, s = wall(lambda: de.device_tables(costs, **bounds,
+                                                   device=dev))
+        res["tables_copy_s"].append(s)
+        del costs
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = de.dp_forward_tb(*tensors, **bounds, local=False)
+        stop.record()
+        torch.cuda.synchronize()
+        res["k7_launch_ms"].append(start.elapsed_time(stop))
+        (H, _, _), s = wall(lambda: [x.cpu().numpy() for x in out])
+        res["pull_s"].append(s)
+        del tensors, out
+        score, s = wall(lambda: hd._scores_k7(bucket, params, dev))
+        res["scores_k7_s"].append(s)
+        assert np.isfinite(score).all() and score[0] == H[0, -1, -1]
+        (scores, _), s = wall(lambda: hd.screen_hmap_device(
+            query, templates, params, library=library, device=dev))
+        res["screen_s"].append(s)
+        assert scores.view(np.uint32)[0] == score.view(np.uint32)[0]
+    res["score"] = float(score[0])
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--oversized", type=int, default=0, metavar="T")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -60,7 +140,12 @@ def main() -> int:
     built = _build.load()
     res = {"root": root, "card": cs.card_line(), "nvcc_s": built.seconds,
            "ptxas": [line.strip() for line in built.log.splitlines()
-                     if "dp_general" in line or "registers" in line]}
+                     if "dp_general" in line or "znorm" in line
+                     or "registers" in line]}
+    if args.oversized:
+        res.update(oversized(args.oversized, args.reps, dev))
+        print(json.dumps(res))
+        return 0
     with tempfile.TemporaryDirectory() as d:
         qfn, lib_dir, _, _ = cs.make_profile_library(d)
         query, templates, _ = cli.read_profiles(qfn, lib_dir)
@@ -76,6 +161,18 @@ def main() -> int:
         for tabs in tables:
             ds.dp_general(*tabs)
 
+    alpha = float(np.float32(params.alpha))
+    shift = float(-np.float32(params.zero_shift))
+    raws = [hd.hmap_sim(qt["aa"], qt["zsse"], qt["conf"], b["aa"], b["zsse"],
+                        b["conf"], alpha) for b in library.buckets.values()]
+    if hasattr(hd, "hmap_znorm_ragged"):
+        res["k6_launches"] = 1
+        res["screen_k6_ms"] = cs.cuda_ms(
+            lambda: hd.hmap_znorm_ragged(raws, shift), args.reps)
+    else:
+        res["k6_launches"] = len(raws)
+        res["screen_k6_ms"] = cs.cuda_ms(
+            lambda: [hd.hmap_znorm(S, shift) for S in raws], args.reps)
     if hasattr(ds, "dp_general_ragged"):
         buckets = hd.screen_buckets(qt, library, params)
         flags = hd.ragged_flags(params)

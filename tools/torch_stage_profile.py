@@ -25,9 +25,9 @@ profile against 1024 template profiles of 128-384 residues.
 
 1. Replays the stages ``--repeats`` times, synchronizing after each:
    profile parsing, the library's host packing and copy to the device,
-   K5 and K6 per length bucket (each summed over the buckets), K3 once
-   over the whole library (one ragged launch, its costs built in the
-   kernel), the score pull and the top-k.
+   K5 per length bucket (summed over the buckets), K6 once over the whole
+   library (one ragged launch), K3 once over it (one ragged launch, its
+   costs built in the kernel), the score pull and the top-k.
 2. Runs the whole CLI once under ``torch.profiler`` (as above).
 
 Prints one JSON object with every number and the card's name and power
@@ -117,16 +117,16 @@ def replay(qfa, lfa, blosum, gi, ge, dev):
 
 def replay_profiles(qfn, lib_dir, dev):
     """One pass over ``--profiles 1``'s stages; returns {stage: seconds}
-    (K5 and K6 summed over the buckets, K3 one launch)."""
+    (K5 summed over its launches, one per bucket; K6 and K3 one launch
+    each)."""
     from alignment_algos_tpu_torch.cli import screen as cli
     from alignment_algos_tpu_torch.ops import dp_scores as ds
     from alignment_algos_tpu_torch.ops import hmap_device as hd
 
-    st = dict.fromkeys(("K5", "K6"), 0.0)
     t0 = sync()
     query, templates, _ = cli.read_profiles(qfn, lib_dir)
     t1 = sync()
-    st["parse profiles"] = t1 - t0
+    st = {"parse profiles": t1 - t0}
     params = hd.HMAPaliParams()
     library = hd.DeviceLibrary(templates, hd.HMAPaliEval(params), device=dev)
     qt = hd.query_tensors(query, dev)
@@ -134,30 +134,26 @@ def replay_profiles(qfn, lib_dir, dev):
     st["library pack + to_device"] = t2 - t1
     alpha = float(np.float32(params.alpha))
     shift = float(-np.float32(params.zero_shift))
-    buckets = []
-    for b in library.buckets.values():
-        a = sync()
-        raw = hd.hmap_sim(qt["aa"], qt["zsse"], qt["conf"], b["aa"],
-                          b["zsse"], b["conf"], alpha)
-        b1 = sync()
-        buckets.append((hd.hmap_znorm(raw, shift), b["D"], b["A"], b["B"],
-                        None))
-        b2 = sync()
-        st["K5"] += b1 - a
-        st["K6"] += b2 - b1
+    bs = list(library.buckets.values())
+    raws = [hd.hmap_sim(qt["aa"], qt["zsse"], qt["conf"], b["aa"],
+                        b["zsse"], b["conf"], alpha) for b in bs]
     t3 = sync()
-    out = ds.dp_general_ragged(buckets, **hd.ragged_flags(params))
+    st["K5"] = t3 - t2
+    Ss = hd.hmap_znorm_ragged(raws, shift)
+    buckets = [(S, b["D"], b["A"], b["B"], None) for S, b in zip(Ss, bs)]
     t4 = sync()
-    st["K3"] = t4 - t3
-    scores = np.zeros(len(templates), np.float32)
-    scores[[i for b in library.buckets.values() for i in b["idx"]]] = \
-        out.cpu().numpy()
+    st["K6"] = t4 - t3
+    out = ds.dp_general_ragged(buckets, **hd.ragged_flags(params))
     t5 = sync()
-    st["pull"] = t5 - t4
-    np.lexsort((np.arange(len(scores)), -scores))[:cs.TOP_K]
+    st["K3"] = t5 - t4
+    scores = np.zeros(len(templates), np.float32)
+    scores[[i for b in bs for i in b["idx"]]] = out.cpu().numpy()
     t6 = sync()
-    st["top-k"] = t6 - t5
-    st["total"] = t6 - t0
+    st["pull"] = t6 - t5
+    np.lexsort((np.arange(len(scores)), -scores))[:cs.TOP_K]
+    t7 = sync()
+    st["top-k"] = t7 - t6
+    st["total"] = t7 - t0
     st["buckets"] = len(library.buckets)
     return st
 
