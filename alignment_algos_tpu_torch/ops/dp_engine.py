@@ -8,7 +8,10 @@ Hopper kernel carries it:
 
 * :func:`dp_forward_tb` (K7, ``csrc/dp_traceback.cu``) replaces the TPU's
   ``dp_engine._dp_forward`` (a ``lax.scan`` over rows) and its vmap
-  ``_dp_forward_batched``: n same-shape pairs, one block each.
+  ``_dp_forward_batched``: n same-shape pairs, one thread-block cluster
+  each, its interior columns cut over the cluster's blocks by
+  :func:`k7_plan` (a pure function of the shapes, which also picks the
+  memory mode: D and Cm resident in shared memory, or streamed).
 * :func:`dp_forward_tb_plain` is its plain PyTorch version: rows in order,
   each vectorized over (n, t2), with the (n, t2, t2) deletion slab and the
   (n, rows, t2) insertion history.
@@ -28,6 +31,10 @@ build on the mirrored cost model, as the JAX package does.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
@@ -37,21 +44,26 @@ from .dp_ref import NULL, DPResult
 from .dp_pallas import _bucket_shape, _host_tables
 from .dp_scores import NEG
 
-__all__ = ["build_forward", "build_forward_batched", "build_reverse",
-           "device_tables", "dp_forward_tb", "dp_forward_tb_plain"]
+__all__ = ["K7Plan", "build_forward", "build_forward_batched",
+           "build_reverse", "device_tables", "dp_forward_tb",
+           "dp_forward_tb_plain", "k7_candidates", "k7_plan", "launch_plan"]
 
 
 # ----------------------------------------------------------- plain version
 
 def _first_max(x: torch.Tensor, neg: torch.Tensor, dim: int):
-    """(max, first argmax) over ``dim``; (NEG, 0) where ``dim`` is empty
-    (``jnp.max``/``jnp.argmax`` over an all-NEG masked axis)."""
+    """(value at the first argmax, first argmax) over ``dim``; (NEG, 0)
+    where ``dim`` is empty (``jnp.max``/``jnp.argmax`` over an all-NEG
+    masked axis).  The value is gathered, not ``amax``: its bits are the
+    first maximum's on every device (a -0.0 before a +0.0 stays -0.0), as
+    K7's are."""
     if x.shape[dim] == 0:
         shape = list(x.shape)
         del shape[dim]
         return (neg.expand(shape),
                 torch.zeros(shape, dtype=torch.int64, device=x.device))
-    return x.amax(dim=dim), x.argmax(dim=dim)
+    arg = x.argmax(dim=dim)
+    return x.gather(dim, arg.unsqueeze(dim)).squeeze(dim), arg
 
 
 def dp_forward_tb_plain(S, D, Cm, ins0, insc, *, q0: int, q1: int, t0: int,
@@ -133,6 +145,127 @@ def dp_forward_tb_plain(S, D, Cm, ins0, insc, *, q0: int, q1: int, t0: int,
     return H, PQ, PT
 
 
+# ------------------------------------------------------- K7's launch plan
+
+K7_THREADS = 1024            # csrc/dp_traceback.cu kThreads
+K7_CLUSTERS = (16, 8)        # blocks per pair, the first the card places
+K7_SMEM_LIMIT = 232_448      # shared memory a block opts into on an H100
+
+
+@dataclass(frozen=True)
+class K7Plan:
+    """How K7 runs one shape: ``mode`` ("resident": each block keeps its
+    columns of D and Cm and their insertion history in shared memory;
+    "streamed": those stay in device memory), ``cluster`` blocks per pair,
+    block b owning the interior columns [cuts[b], cuts[b+1]), and the
+    dynamic shared memory each block is given."""
+    mode: str
+    cluster: int
+    cuts: tuple
+    smem_bytes: int
+
+
+def k7_candidates(q0: int, q1: int, t0: int, t1: int) -> np.ndarray:
+    """Gap candidates K7 scans for each interior column j in [t0+2, t1-1]
+    over the whole build: per interior row i, j - t0 - 2 deletions and
+    i - q0 - 2 insertions."""
+    rows = q1 - q0 - 2
+    j = np.arange(t0 + 2, t1, dtype=np.int64)
+    return rows * (j - t0 - 2) + rows * (rows - 1) // 2
+
+
+def _cut(weights: np.ndarray, parts: int) -> list:
+    """parts + 1 offsets into ``weights`` that cut it into contiguous runs
+    of near-equal sums (each offset the nearest to its share); equal
+    widths where every weight is 0."""
+    n, total = len(weights), int(weights.sum())
+    if total == 0:
+        return [b * n // parts for b in range(parts + 1)]
+    prefix = np.concatenate([[0], np.cumsum(weights)])
+    out = [0]
+    for b in range(1, parts):
+        target = b * total / parts
+        m = int(np.searchsorted(prefix, target))
+        if m > 0 and target - prefix[m - 1] <= prefix[m] - target:
+            m -= 1
+        out.append(max(m, out[-1]))
+    return out + [n]
+
+
+def k7_smem_bytes(mode: str, q2: int, t2: int, q0: int, q1: int, t0: int,
+                  cuts) -> int:
+    """The largest dynamic shared memory any block of the plan needs
+    (``dp_traceback.cu`` ``smem_floats``): two rows of t2, the parts'
+    (value, k) pairs of both gap kinds, then per block its columns' D rows
+    t0+1 .. hi-3, Cm distances 2 .. q1-q0-2 and history rows q0+1 .. q1-3
+    (resident), or the history of the column left of its slice
+    (streamed)."""
+    base = 2 * t2 + 4 * K7_THREADS
+    if mode == "streamed":
+        return 4 * (base + q2)
+    cm_rows = max(0, q1 - q0 - 3)
+    need = max((hi - lo) * (max(0, hi - 3 - t0) + 2 * cm_rows)
+               for lo, hi in zip(cuts[:-1], cuts[1:]))
+    return 4 * (base + need)
+
+
+@functools.lru_cache(maxsize=256)
+def k7_plan(q2: int, t2: int, q0: int, q1: int, t0: int, t1: int,
+            cluster: int = 16, smem_limit: int = K7_SMEM_LIMIT) -> K7Plan:
+    """K7's plan for one shape: the interior columns cut over ``cluster``
+    blocks by equal gap-candidate counts (:func:`k7_candidates`: the right
+    columns scan longer deletion rows, so their slices are narrower), and
+    the resident mode where its shared memory fits ``smem_limit``, else the
+    streamed one.  Raises ValueError when neither fits."""
+    lo = t0 + 2
+    cuts = tuple(lo + c for c in _cut(k7_candidates(q0, q1, t0, t1),
+                                      cluster))
+    for mode in ("resident", "streamed"):
+        smem = k7_smem_bytes(mode, q2, t2, q0, q1, t0, cuts)
+        if smem <= smem_limit:
+            return K7Plan(mode, cluster, cuts, smem)
+    raise ValueError(f"K7: a {q2} x {t2} build needs {smem} bytes of shared "
+                     f"memory per block even streamed; the card gives "
+                     f"{smem_limit}")
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    with torch.cuda.device(index):
+        return int(_build.load().lib.dp_tb_smem_optin())
+
+
+@functools.lru_cache(maxsize=256)
+def _clusters_fit(index: int, cluster: int, smem: int, resident: bool) -> int:
+    with torch.cuda.device(index):
+        return int(_build.load().lib.dp_tb_max_active_clusters(
+            cluster, smem, int(resident)))
+
+
+def launch_plan(device, q2: int, t2: int, q0: int, q1: int, t0: int,
+                t1: int) -> K7Plan:
+    """The plan :func:`dp_forward_tb` launches on ``device`` (a CUDA
+    device): the first of ``K7_CLUSTERS`` whose cluster the card can place
+    with the plan's shared memory (``cudaOccupancyMaxActiveClusters``).
+    Raises RuntimeError when none can be placed."""
+    device = torch.device(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    limit = _smem_optin(index)
+    for cluster in K7_CLUSTERS:
+        plan = k7_plan(q2, t2, q0, q1, t0, t1, cluster, limit)
+        fit = _clusters_fit(index, cluster, plan.smem_bytes,
+                            plan.mode == "resident")
+        if fit >= 1:
+            return plan
+        if fit < 0:
+            raise RuntimeError(f"K7: CUDA error {-fit} asking whether a "
+                               f"cluster of {cluster} blocks fits")
+    raise RuntimeError(f"K7: the card places no cluster of "
+                       f"{' or '.join(map(str, K7_CLUSTERS))} blocks for a "
+                       f"{q2} x {t2} build")
+
+
 # ------------------------------------------------------------------ kernel
 
 def _check(S, D, Cm, ins0, insc, q0, q1, t0, t1):
@@ -175,7 +308,8 @@ def dp_forward_tb(S, D, Cm, ins0, insc, *, q0: int, q1: int, t0: int,
     ``DPResult`` of ``dp_engine.build_forward_jax``.
 
     CPU tensors run :func:`dp_forward_tb_plain`; CUDA tensors launch the
-    kernel (a build or launch failure raises)."""
+    kernel with :func:`launch_plan`'s cluster and mode (a build or launch
+    failure, or a cluster the card cannot place, raises)."""
     n, q2, t2 = _check(S, D, Cm, ins0, insc, q0, q1, t0, t1)
     if S.device.type == "cpu":
         return dp_forward_tb_plain(S, D, Cm, ins0, insc, q0=q0, q1=q1,
@@ -183,6 +317,8 @@ def dp_forward_tb(S, D, Cm, ins0, insc, *, q0: int, q1: int, t0: int,
     if S.device.type != "cuda":
         raise ValueError(f"no kernel for device {S.device}")
     lib = _build.load().lib
+    plan = launch_plan(S.device, q2, t2, q0, q1, t0, t1)
+    cuts = (ctypes.c_int * len(plan.cuts))(*plan.cuts)
     H = torch.empty((n, q2, t2), dtype=torch.float32, device=S.device)
     PQ = torch.empty((n, q2, t2), dtype=torch.int32, device=S.device)
     PT = torch.empty((n, q2, t2), dtype=torch.int32, device=S.device)
@@ -191,7 +327,9 @@ def dp_forward_tb(S, D, Cm, ins0, insc, *, q0: int, q1: int, t0: int,
         err = lib.dp_tb_launch(
             S.data_ptr(), D.data_ptr(), Cm.data_ptr(), ins0.data_ptr(),
             insc.data_ptr(), H.data_ptr(), PQ.data_ptr(), PT.data_ptr(),
-            n, q2, t2, q0, q1, t0, t1, int(bool(local)), stream)
+            n, q2, t2, q0, q1, t0, t1, int(bool(local)),
+            int(plan.mode == "resident"), plan.cluster,
+            ctypes.cast(cuts, ctypes.c_void_p), plan.smem_bytes, stream)
     _build.check(err, "dp_tb_launch")
     dp_forward_tb.launches += 1
     return H, PQ, PT

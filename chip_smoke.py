@@ -57,14 +57,17 @@
    bound), on a full bucket and on a 64-pair 258 x 258 batch (each as a
    ragged launch and in the table form), K5 on a full bucket, and K6 on
    the whole library and on a full bucket, each against its plain version.
-6. The exact DP builds behind the alignment tools.  Holds K7 (H, PQ and PT)
-   against its plain version on odd shapes, three sub-rectangles, a
-   bounded 130 x 97 build and a 386 x 404 pair, on random, Gn2-style,
+6. The exact DP builds behind the alignment tools.  Holds K7 (H as
+   float32 bits, PQ and PT) against its plain version on odd shapes, three
+   sub-rectangles, a bounded 130 x 97 build, a 386 x 404 pair (its
+   resident mode) and 12 x 7,302 (its streamed mode), on random, Gn2-style,
    integer-tie and |S|-near-1e8 costs, global and local; and against the
    numpy ``dp_ref`` engine on 2 real-size pairs, nalign's HMAP pair and a
    Gn2-style pair of path B's size (forward, and reverse with
    ``bug_compat`` on and off), all with tolerance 0.  Times K7 and its
-   plain version on the 386 x 404 pair and at 182 x 224.  Then drives the
+   plain version on the 386 x 404 pair and at 182 x 224, with the mode and
+   cluster size of each launch (K7's row carries the 386 x 404 pair's; its
+   chain floor, worked out from the rows, is logged).  Then drives the
    port's tools on the card, each byte-equal to the same tool with
    ``AAT_DP_BACKEND=numpy``: path A, ``nalign`` on a 384-residue query
    profile against a 402-residue homolog template generated from the seed
@@ -130,6 +133,16 @@ K6_EDGES = [(2, 3, 3), (1, 3, 700), (1, 300, 450), (3, 5, 6), (2, 6, 9)]
 # a screen past K3's shared-memory cap (t2 7,200): a 30-residue query
 # against ordinary templates and one of 7,300 residues
 BIG_Q, BIG_TEMPLATES = 30, (40, 61, 90, 61, 7300)
+# K7's checks against its plain version (n, q2, t2, bounds or None for the
+# whole matrix): odd shapes, sub-rectangles, a bounded build, nalign's size
+# (resident: D and Cm in shared memory) and 12 x 7,302 (streamed)
+K7_SHAPES = [(1, 9, 7, None), (3, 13, 21, None), (2, 41, 33, None),
+             (1, 16, 15, (2, 10, 3, 12)), (1, 16, 15, (1, 14, 1, 13)),
+             (1, 16, 15, (4, 7, 2, 9)), (2, 130, 97, (7, 120, 11, 90)),
+             (1, 386, 404, None), (1, 12, 7302, None)]
+# K7's chain floor, worked out and not measured: per row one cluster
+# barrier and one round of distributed-shared stores, an assumed 0.3-0.5 us
+K7_ROW_US = (0.3, 0.5)
 # published H100 SXM rates: HBM bytes per second; float32 and float64
 # lanes per SM, each one operation per clock
 HBM_BYTES_PER_S = 3.35e12
@@ -973,7 +986,10 @@ def k7_costs(de, rng, q2, t2, kind: str):
 
 
 def same_results(got, want, tag: str) -> None:
-    for name in ("H", "PQ", "PT"):
+    """H as float32 bits (an int32 view), PQ and PT equal."""
+    np.testing.assert_array_equal(got.H.view(np.int32), want.H.view(np.int32),
+                                  err_msg=f"{tag}: H bits")
+    for name in ("PQ", "PT"):
         np.testing.assert_array_equal(getattr(got, name), getattr(want, name),
                                       err_msg=f"{tag}: {name}")
 
@@ -1009,23 +1025,26 @@ def check_k7(dev, d, na_files, card):
         got = de.dp_forward_tb(*tabs, **b)
         want = de.dp_forward_tb_plain(*tabs, **b)
         torch.cuda.synchronize()
-        for g, w, name in zip(got, want, ("H", "PQ", "PT")):
+        assert same_bits(got[0], want[0]), f"K7 != plain (H bits): {tag}"
+        for g, w, name in zip(got[1:], want[1:], ("PQ", "PT")):
             assert torch.equal(g, w), f"K7 != plain ({name}): {tag}"
         err = max(err, max_abs(got[0], want[0]))
+        return de.launch_plan(dev, tabs[0].shape[1], tabs[0].shape[2], q0,
+                              q1, t0, t1).mode
 
-    shapes = [(1, 9, 7, None), (3, 13, 21, None), (2, 41, 33, None),
-              (1, 16, 15, (2, 10, 3, 12)), (1, 16, 15, (1, 14, 1, 13)),
-              (1, 16, 15, (4, 7, 2, 9)), (2, 130, 97, (7, 120, 11, 90)),
-              (1, 386, 404, None)]
-    for n, q2, t2, bounds in shapes:
+    modes = set()
+    for n, q2, t2, bounds in K7_SHAPES:
         for kind in ("affine", "gn2", "ties", "big"):
             costs = [k7_costs(de, rng, q2, t2, kind) for _ in range(n)]
             for local in (False, True):
-                vs_plain(costs, bounds or (0, q2 - 1, 0, t2 - 1), local,
-                         f"{kind} {n}x{q2}x{t2} {bounds} local={local}")
-    log("K7 equals plain (H, PQ, PT) on odd shapes, three sub-rectangles, "
-        "130 x 97 bounded and 386 x 404; affine, gn2 (C term), integer ties "
-        "and |S| near 1e8; global and local")
+                modes.add(vs_plain(costs, bounds or (0, q2 - 1, 0, t2 - 1),
+                                   local, f"{kind} {n}x{q2}x{t2} {bounds} "
+                                          f"local={local}"))
+    assert modes == {"resident", "streamed"}, modes
+    log("K7 equals plain (H as float32 bits, PQ, PT) on odd shapes, three "
+        "sub-rectangles, 130 x 97 bounded, 386 x 404 and 12 x 7302 "
+        "(streamed); affine, gn2 (C term), integer ties and |S| near 1e8; "
+        "global and local")
 
     # the independent engine (dp_ref, numpy / native) on 2 pairs: nalign's
     # HMAP pair and a Gn2-style pair of path B's size; forward global and
@@ -1058,18 +1077,24 @@ def check_k7(dev, d, na_files, card):
         f"and off")
 
     # times at path A's pair (HMAP costs) and at path B's size (Gn2-style)
-    times = []
+    times, plans = [], []
     for c in pairs:
         q2, t2 = c.q_size, c.t_size
         tabs = de.device_tables([c], 0, q2 - 1, 0, t2 - 1, device=dev)
         b = dict(q0=0, q1=q2 - 1, t0=0, t1=t2 - 1)
-        times.append((cuda_ms(lambda: de.dp_forward_tb(*tabs, **b), 5),
+        plans.append(de.launch_plan(dev, q2, t2, **b))
+        times.append((cuda_ms(lambda: de.dp_forward_tb(*tabs, **b), 20),
                       cuda_ms(lambda: de.dp_forward_tb_plain(*tabs, **b), 2)))
         log(f"K7 {times[-1][0]:.3f} ms vs plain {times[-1][1]:.3f} ms at one "
-            f"{q2} x {t2} pair on {card}")
+            f"{q2} x {t2} pair ({plans[-1].mode}, a cluster of "
+            f"{plans[-1].cluster} blocks, {plans[-1].smem_bytes} bytes of "
+            f"shared memory each) on {card}")
+    assert all(p.cluster > 1 for p in plans), plans
     extra = {"shape": f"1x{na.q_size}x{na.t_size}",
              "dims": (1, na.q_size, na.t_size),
-             "ms_1x182x224": times[1][0], "plain_ms_1x182x224": times[1][1]}
+             "mode": plans[0].mode, "cluster": plans[0].cluster,
+             "ms_1x182x224": times[1][0], "plain_ms_1x182x224": times[1][1],
+             "mode_1x182x224": plans[1].mode}
     return (err, *times[0]), extra
 
 
@@ -1340,6 +1365,10 @@ def main() -> int:
     cand = n * ia * ib * (ia + ib - 2) / 2
     k7_bound = bound(4 * n * (2 * q2 * t2 + t2 * t2 + 2 * q2)
                      + 12 * n * q2 * t2, 3 * cand + 4 * n * ia * ib)
+    log(f"k7: chain floor {ia * K7_ROW_US[0] / 1e3:.6f}-"
+        f"{ia * K7_ROW_US[1] / 1e3:.6f} ms at {k7_extra['shape']}, worked out "
+        f"({ia} rows at an assumed {K7_ROW_US[0]}-{K7_ROW_US[1]} us per "
+        f"cluster barrier and distributed-shared push), not measured")
     # K8: the codes the walks read, m[:Q] and one dat entry per lane, the
     # scores and the records; its first-maximum scan compares Q x B floats
     steps = Q_LEN + T_MAX + 2

@@ -626,11 +626,34 @@ def _k7_costs(rng, q2, t2, kind):
     return c
 
 
-# (n, q2, t2, (q0, q1, t0, t1) or None for the whole matrix)
+# the largest t2 that dp_engine.k7_plan keeps resident at q2 = 40 on a
+# 16-block cluster with 232,448 bytes (test_k7_resident_edge checks it)
+K7_RESIDENT_EDGE = 838
+
+# (n, q2, t2, (q0, q1, t0, t1) or None for the whole matrix): odd shapes,
+# sub-rectangles, 16 x 4 interior columns and one either side, a t2 with
+# fewer interior columns than blocks, three pairs (three clusters), the
+# resident edge and one column past it, and streamed shapes (slices wider
+# than a block's threads, and a bounded one)
 K7_SHAPES = [(1, 9, 7, None), (3, 13, 21, None), (2, 41, 33, None),
              (1, 16, 15, (2, 10, 3, 12)), (1, 16, 15, (1, 14, 1, 13)),
              (1, 16, 15, (4, 7, 2, 9)), (2, 130, 97, (7, 120, 11, 90)),
-             (1, 386, 404, None)]
+             (1, 386, 404, None), (1, 40, 65, None), (1, 40, 66, None),
+             (1, 40, 67, None), (2, 20, 12, None), (3, 60, 67, None),
+             (1, 40, K7_RESIDENT_EDGE, None),
+             (1, 40, K7_RESIDENT_EDGE + 1, None), (1, 12, 7302, None),
+             (2, 40, 3000, (3, 37, 100, 2950))]
+
+
+def _k7_vs_plain(tabs, b):
+    """K7 against its plain version as bits: H as an int32 view (NaN at
+    the same places), PQ and PT equal."""
+    from alignment_algos_tpu_torch.ops import dp_engine
+    got = dp_engine.dp_forward_tb(*tabs, **b)
+    torch.cuda.synchronize()
+    want = dp_engine.dp_forward_tb_plain(*tabs, **b)
+    assert _same_bits(got[0], want[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
 
 
 @pytest.mark.parametrize("kind", ["affine", "gn2", "ties", "big"])
@@ -643,11 +666,44 @@ def test_k7_equals_plain(cuda, n, q2, t2, bounds, local, kind):
     q0, q1, t0, t1 = bounds or (0, q2 - 1, 0, t2 - 1)
     b = dict(q0=q0, q1=q1, t0=t0, t1=t1, local=local)
     tabs = dp_engine.device_tables(costs, q0, q1, t0, t1, device=cuda)
-    got = dp_engine.dp_forward_tb(*tabs, **b)
-    torch.cuda.synchronize()
-    want = dp_engine.dp_forward_tb_plain(*tabs, **b)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    _k7_vs_plain(tabs, b)
+
+
+def test_k7_resident_edge(cuda):
+    """The card's plan for the resident edge: 16 blocks, resident at
+    K7_RESIDENT_EDGE and streamed one column past it; the streamed shapes
+    of K7_SHAPES stream."""
+    from alignment_algos_tpu_torch.ops import dp_engine
+    e = K7_RESIDENT_EDGE
+    plans = [dp_engine.launch_plan(cuda, 40, t2, 0, 39, 0, t2 - 1)
+             for t2 in (e, e + 1)]
+    assert [(p.cluster, p.mode) for p in plans] == [(16, "resident"),
+                                                    (16, "streamed")]
+    assert dp_engine.launch_plan(cuda, 12, 7302, 0, 11, 0, 7301).mode \
+        == "streamed"
+    assert dp_engine.launch_plan(cuda, 386, 404, 0, 385, 0, 403).mode \
+        == "resident"
+
+
+def test_k7_negative_zero_model_matches_dp_ref(cuda):
+    """S all -0.0 with zero D, A and B (ROADMAP C5), global mode: K7's H
+    equals dp_ref's as bits (+0.0 everywhere), and its plain version."""
+    from alignment_algos_tpu_torch.ops import dp_engine, dp_ref
+    f32 = np.float32
+    for q2, t2 in ((9, 8), (60, 67)):
+        c = DPCosts(S=np.full((q2, t2), -0.0, f32), D=np.zeros((t2, t2), f32),
+                    A=np.zeros(t2, f32), B=np.zeros(t2, f32),
+                    ins_zero_head_q=False, ins_zero_tail_q=False)
+        bounds = (0, q2 - 1, 0, t2 - 1)
+        got = dp_engine.build_forward(c, *bounds, False, device=cuda)
+        want = dp_ref.build_forward(c, *bounds, local=False)
+        np.testing.assert_array_equal(got.H.view(np.int32),
+                                      want.H.view(np.int32))
+        np.testing.assert_array_equal(got.PQ, want.PQ)
+        np.testing.assert_array_equal(got.PT, want.PT)
+        tabs = dp_engine.device_tables([c], *bounds, device=cuda)
+        _k7_vs_plain(tabs, dict(q0=0, q1=q2 - 1, t0=0, t1=t2 - 1,
+                                local=False))
 
 
 @pytest.mark.parametrize("local", [False, True])
@@ -662,23 +718,24 @@ def test_k7_matches_dp_ref(cuda, local):
         q1, t1 = c.q_size - 1, c.t_size - 1
         got = dp_engine.build_forward(c, 0, q1, 0, t1, local, device=cuda)
         want = dp_ref.build_forward(c, 0, q1, 0, t1, local=local)
-        for name in ("H", "PQ", "PT"):
-            np.testing.assert_array_equal(getattr(got, name),
-                                          getattr(want, name))
+        _same_results(got, want)
         for bug_compat in (True, False):
             got = dp_engine.build_reverse(c, 0, q1, 0, t1, local, bug_compat,
                                           device=cuda)
             want = dp_ref.build_reverse(c, 0, q1, 0, t1, local=local,
                                         bug_compat=bug_compat)
-            for name in ("H", "PQ", "PT"):
-                np.testing.assert_array_equal(getattr(got, name),
-                                              getattr(want, name))
+            _same_results(got, want)
     pair = [_k7_costs(rng, 60, 47, "affine") for _ in range(3)]
     for got, c in zip(dp_engine.build_forward_batched(pair, local,
                                                       device=cuda), pair):
-        want = dp_ref.build_forward(c, 0, 59, 0, 46, local=local)
-        np.testing.assert_array_equal(got.PQ, want.PQ)
-        np.testing.assert_array_equal(got.H, want.H)
+        _same_results(got, dp_ref.build_forward(c, 0, 59, 0, 46, local=local))
+
+
+def _same_results(got, want):
+    """H as float32 bits (an int32 view), PQ and PT equal."""
+    np.testing.assert_array_equal(got.H.view(np.int32), want.H.view(np.int32))
+    np.testing.assert_array_equal(got.PQ, want.PQ)
+    np.testing.assert_array_equal(got.PT, want.PT)
 
 
 def test_k7_counts_launches_and_rejects_bad_input(cuda):

@@ -205,6 +205,139 @@ def test_wrapper_routes_cpu_tensors_and_rejects_bad_input():
             device=CPU)
 
 
+@pytest.mark.parametrize("local", [False, True])
+def test_negative_zero_model_is_dp_ref_bit_for_bit(local):
+    """S all -0.0 with zero D, A and B at 9 x 8 (ROADMAP C5): the port's
+    build equals ``dp_ref`` as float32 bits (every H cell +0.0, since IEEE
+    0.0 + (-0.0) is +0.0).  The JAX engine equals both in value, PQ and PT;
+    in global mode its H is -0.0 on the diagonal (1, 1) .. (6, 6), where
+    XLA folds the boundary cell's ``0.0 + S`` (JAX ``ops/dp_engine.py:56``)
+    into S's -0.0 and the match chain carries it down the diagonal."""
+    f32 = np.float32
+    c = DPCosts(S=np.full((9, 8), -0.0, f32), D=np.zeros((8, 8), f32),
+                A=np.zeros(8, f32), B=np.zeros(8, f32),
+                ins_zero_head_q=False, ins_zero_tail_q=False)
+    got = dp_engine.build_forward(port_costs(c), 0, 8, 0, 7, local,
+                                  device=CPU)
+    ref = dp_ref.build_forward(c, 0, 8, 0, 7, local=local)
+    np.testing.assert_array_equal(got.H.view(np.int32), ref.H.view(np.int32))
+    assert_same(got, ref)
+    assert not np.signbit(ref.H).any()
+    jax = jde.build_forward_jax(c, 0, 8, 0, 7, local=local)
+    assert_same(jax, ref)
+    differ = list(zip(*np.nonzero(jax.H.view(np.int32)
+                                  != ref.H.view(np.int32))))
+    assert differ == ([] if local else [(d, d) for d in range(1, 7)])
+    assert all(np.signbit(jax.H[d]) for d in differ)
+
+
+def test_first_max_takes_the_first_maximum_bits():
+    """``_first_max`` returns the value at the first argmax: -0.0 before
+    +0.0 gives -0.0 (``amax`` may return either zero)."""
+    neg = torch.tensor(np.float32(-3.0e38))
+    x = torch.tensor([[-1.0, -0.0, 0.0, -2.0], [-5.0, 0.0, -0.0, 0.0]])
+    val, arg = dp_engine._first_max(x, neg, 1)
+    assert arg.tolist() == [1, 1]
+    assert torch.signbit(val).tolist() == [True, False]
+
+
+# ------------------------------------------------------- K7's launch plan
+
+# (q2, t2, (q0, q1, t0, t1) or None for the whole matrix)
+PLAN_SHAPES = [(386, 404, None), (182, 224, None), (258, 7302, None),
+               (12, 7302, None), (40, 3000, None), (9, 7, None),
+               (41, 33, None), (16, 15, (4, 7, 2, 9)),
+               (130, 97, (7, 120, 11, 90)), (386, 404, (10, 300, 250, 390)),
+               (258, 7302, (3, 200, 5000, 7100))]
+
+
+def _whole(q2, t2, bounds):
+    return bounds or (0, q2 - 1, 0, t2 - 1)
+
+
+@pytest.mark.parametrize("cluster", [16, 8])
+@pytest.mark.parametrize("q2,t2,bounds", PLAN_SHAPES)
+def test_k7_plan_gives_each_interior_column_one_block(q2, t2, bounds,
+                                                      cluster):
+    q0, q1, t0, t1 = _whole(q2, t2, bounds)
+    plan = dp_engine.k7_plan(q2, t2, q0, q1, t0, t1, cluster)
+    assert plan.cluster == cluster and len(plan.cuts) == cluster + 1
+    owners = np.zeros(t2, np.int64)
+    for lo, hi in zip(plan.cuts[:-1], plan.cuts[1:]):
+        assert lo <= hi
+        owners[lo:hi] += 1
+    assert (owners[t0 + 2:t1] == 1).all()
+    assert owners.sum() == t1 - t0 - 2
+    assert plan.smem_bytes <= dp_engine.K7_SMEM_LIMIT
+
+
+@pytest.mark.parametrize("q2,t2,bounds", [(386, 404, (10, 300, 250, 390)),
+                                          (258, 7302, (3, 200, 5000, 7100))])
+def test_k7_plan_of_a_subrectangle_starting_inside_a_later_slice(q2, t2,
+                                                                 bounds):
+    """The sub-rectangle's t0 falls inside a slice other than the first of
+    the whole matrix's plan; its own plan cuts only [t0+2, t1-1]."""
+    q0, q1, t0, t1 = bounds
+    whole = dp_engine.k7_plan(q2, t2, 0, q2 - 1, 0, t2 - 1)
+    inside = [b for b, (lo, hi) in enumerate(zip(whole.cuts[:-1],
+                                                 whole.cuts[1:]))
+              if lo <= t0 < hi]
+    assert inside and inside[0] > 0
+    plan = dp_engine.k7_plan(q2, t2, q0, q1, t0, t1)
+    assert plan.cuts[0] == t0 + 2 and plan.cuts[-1] == t1
+    assert all(a <= b for a, b in zip(plan.cuts, plan.cuts[1:]))
+
+
+def test_k7_plan_modes_at_the_tools_and_screen_shapes():
+    """nalign's 386 x 404 and gn2's 182 x 224 keep D, Cm and the history
+    in shared memory on a 16-block cluster; a 7,302-column bucket past K3's
+    cap streams them.  Every resident plan fits the H100's 232,448 bytes,
+    and the shared bytes are the kernel's layout."""
+    plans = {sh: dp_engine.k7_plan(*sh, 0, sh[0] - 1, 0, sh[1] - 1)
+             for sh in ((386, 404), (182, 224), (258, 7302))}
+    assert [p.mode for p in plans.values()] == ["resident", "resident",
+                                                "streamed"]
+    assert all(p.cluster == 16 for p in plans.values())
+    for q2 in (12, 40, 182, 386):
+        for t2 in (7, 33, 224, 404, 700, 1500):
+            plan = dp_engine.k7_plan(q2, t2, 0, q2 - 1, 0, t2 - 1)
+            if plan.mode == "resident":
+                assert plan.smem_bytes <= 232_448
+    # two rows and the parts' pairs; streamed: the left column's history;
+    # resident: D, Cm and the history of the block's columns
+    p = plans[(258, 7302)]
+    assert p.smem_bytes == 4 * (2 * 7302 + 4 * dp_engine.K7_THREADS + 258)
+    p = plans[(182, 224)]
+    widths = np.diff(p.cuts)
+    d_rows = np.maximum(0, np.asarray(p.cuts[1:]) - 3)
+    assert p.smem_bytes == 4 * (2 * 224 + 4 * dp_engine.K7_THREADS
+                                + int((widths * (d_rows + 2 * 178)).max()))
+    with pytest.raises(ValueError):
+        dp_engine.k7_plan(40, 40000, 0, 39, 0, 39999)
+
+
+@pytest.mark.parametrize("cluster", [16, 8])
+@pytest.mark.parametrize("q2,t2,bounds", [(258, 7302, None),
+                                          (12, 7302, None),
+                                          (40, 3000, None),
+                                          (258, 7302, (3, 200, 5000, 7100))])
+def test_k7_streamed_slices_hold_equal_candidate_counts(q2, t2, bounds,
+                                                        cluster):
+    """Streamed slices are cut by gap candidates, not width: each slice's
+    count is within one column's worth (the heaviest column's candidates)
+    of the equal share, so the right-hand slices are the narrow ones."""
+    q0, q1, t0, t1 = _whole(q2, t2, bounds)
+    plan = dp_engine.k7_plan(q2, t2, q0, q1, t0, t1, cluster)
+    assert plan.mode == "streamed"
+    cand = dp_engine.k7_candidates(q0, q1, t0, t1)
+    sums = np.asarray([cand[lo - t0 - 2:hi - t0 - 2].sum()
+                       for lo, hi in zip(plan.cuts[:-1], plan.cuts[1:])])
+    assert sums.sum() == cand.sum()
+    assert np.abs(sums - cand.sum() / cluster).max() <= cand.max()
+    widths = np.diff(plan.cuts)
+    assert widths[0] > widths[-1]
+
+
 @pytest.mark.parametrize("bounds", [(2, 3, 1, 6), (1, 6, 2, 3)])
 def test_one_row_or_column_routes_to_dp_ref(bounds):
     q0, q1, t0, t1 = bounds

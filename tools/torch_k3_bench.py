@@ -32,7 +32,14 @@ residues (T + 2 above ``dp_scores.vec_max_t2``), its bucket built by
 (``hmap_device._k7_costs``: S pulled, the T+2 x T+2 deletion table), K7's
 tables built and copied (``dp_engine.device_tables``), the K7 launch
 (CUDA events), the pull of H, PQ and PT, the whole ``_scores_k7`` and the
-whole ``screen_hmap_device`` (host clock to a synchronize).
+whole ``screen_hmap_device`` (host clock to a synchronize), and, where
+the checkout has ``dp_engine.launch_plan``, K7's mode and cluster size.
+
+``--k7`` times, instead, K7 alone at the alignment tools' shapes as
+``chip_smoke.py``'s phase 6 builds them: nalign's 386 x 404 HMAP pair and
+a Gn2-style 182 x 224 pair (CUDA events, ``--reps`` launches after a
+warm-up, three times each), with the launch plan where the checkout has
+one.
 
 ``--root DIR`` imports the port from another checkout, for example the
 parent commit unpacked with ``git archive``, so that two versions are timed
@@ -113,6 +120,38 @@ def oversized(length: int, reps: int, dev) -> dict:
         res["screen_s"].append(s)
         assert scores.view(np.uint32)[0] == score.view(np.uint32)[0]
     res["score"] = float(score[0])
+    res.update(_plan(de, dev, q2, t2))
+    return res
+
+
+def _plan(de, dev, q2: int, t2: int) -> dict:
+    """K7's launch plan for a whole q2 x t2 build, where the checkout has
+    one (one block per pair before it)."""
+    if not hasattr(de, "launch_plan"):
+        return {}
+    plan = de.launch_plan(dev, q2, t2, 0, q2 - 1, 0, t2 - 1)
+    return {f"k7_{q2}x{t2}_mode": plan.mode,
+            f"k7_{q2}x{t2}_cluster": plan.cluster}
+
+
+def k7_tools(reps: int, dev) -> dict:
+    """The ``--k7`` times (see the module's doc), in milliseconds."""
+    import numpy as np
+    import chip_smoke as cs
+    from alignment_algos_tpu_torch.ops import dp_engine as de
+
+    with tempfile.TemporaryDirectory() as d:
+        na = cs.nalign_costs(d, cs.make_nalign_pair(d))
+    gn2 = cs.k7_costs(de, np.random.default_rng(cs.SEED + 4), 182, 224, "gn2")
+    res = {}
+    for c in (na, gn2):
+        q2, t2 = c.q_size, c.t_size
+        b = dict(q0=0, q1=q2 - 1, t0=0, t1=t2 - 1)
+        tabs = de.device_tables([c], **b, device=dev)
+        res[f"k7_1x{q2}x{t2}_ms"] = [
+            cs.cuda_ms(lambda: de.dp_forward_tb(*tabs, **b), reps)
+            for _ in range(3)]
+        res.update(_plan(de, dev, q2, t2))
     return res
 
 
@@ -122,6 +161,7 @@ def main() -> int:
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--oversized", type=int, default=0, metavar="T")
+    ap.add_argument("--k7", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -141,9 +181,10 @@ def main() -> int:
     res = {"root": root, "card": cs.card_line(), "nvcc_s": built.seconds,
            "ptxas": [line.strip() for line in built.log.splitlines()
                      if "dp_general" in line or "znorm" in line
-                     or "registers" in line]}
-    if args.oversized:
-        res.update(oversized(args.oversized, args.reps, dev))
+                     or "dp_tb" in line or "registers" in line]}
+    if args.oversized or args.k7:
+        res.update(oversized(args.oversized, args.reps, dev)
+                   if args.oversized else k7_tools(args.reps, dev))
         print(json.dumps(res))
         return 0
     with tempfile.TemporaryDirectory() as d:
