@@ -42,15 +42,14 @@ SIGNATURES = {
     "sw_tb_launch": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                      _P),
     "sw_decode_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _P),
+                         _I, _I, _I, _P),
     "dp_general_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "dp_general_max_t2": (_I,),
     "dp_tb_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _I, _I, _I, _P, _I, _P),
     "dp_tb_max_active_clusters": (_I, _I, _I),
     "dp_tb_smem_optin": (),
-    "hmap_sim_launch": (_P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I,
-                        _P),
+    "hmap_sim_launch": (_P, _I, _I, _P, _I, _I, _I, _F, _I, _I, _P),
     "hmap_znorm_launch": (_P, _P, _I, _I, _F, _I, _P),
     "hmap_znorm_apply_elems": (),
 }

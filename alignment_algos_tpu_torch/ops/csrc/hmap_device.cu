@@ -3,7 +3,8 @@
 //   K5 hmap_sim_kernel replaces alignment_algos_tpu/ops/hmap_device.py
 //      build_similarity_device (:137) up to the z-norm: the raw
 //      similarity ip * expf(((alpha * pc) * conf_q) * conf_t) with
-//      nan_to_num and zeroed borders.
+//      nan_to_num and zeroed borders.  One host call launches it over
+//      every pair of a screen, each pair described by a SimPair.
 //   K6 hmap_znorm_kernel replaces _znorm_scalars (:172) and the rest of
 //      build_similarity_device: the mean and standard deviation of the
 //      [1, q2-1) x [1, t2-1) region as a strictly serial float32 chain in
@@ -30,19 +31,27 @@
 //   * the z-norm sums are one serial chain per pair: torch.sum and
 //     torch.cumsum accumulate in another order and round differently.
 //
-// What bounds them.  K5: one thread per cell, 23 multiply-adds and one
-// expf, about 100 bytes of profile reads per cell from L1: arithmetic and
-// latency, far below a roofline.  K6's stats pass is one dependent chain
-// per pair (the order is the contract): a screen's time is at least its
-// longest region times one float32 add's latency.  So all pairs run at
-// once, one warp each, in one launch, and the chain reads shared memory
-// that cp.async filled chunks ahead, so it never waits on device memory;
-// the apply pass is elementwise and bound by bytes (S read, out written).
-// Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit: K5 0.036
-// ms on a 5-pair 258 x 258 bucket; K6 0.79 ms for a 1024-template profile
-// screen in one launch (stats 0.52 ms, apply 0.26 ms; 253 launches took
-// 431 ms before), 0.30 ms for the 258 x 258 bucket alone: the chain runs
-// about 9 cycles an element, against 4 for its adds alone.
+// What bounds them.  K5: per interior cell 23 multiply-adds, the division,
+// three multiplies and one float64 expf (about 51 float32 and 10 float64
+// operations), and 4 bytes of S written: operations, by a little.  So a
+// block computes 64 columns of one pair, every row: its template columns
+// (profile, SSE z-rows, confidences) staged in shared memory once,
+// transposed and padded, then the query's rows 32 at a time, and each
+// thread keeps a 4 x 2 micro-tile in registers: per k one broadcast
+// 16-byte load of its four query values and two conflict-free loads of
+// its template values feed 8 multiply-adds, where one thread per cell read
+// 48 floats from device memory.  A block finds its pair by a binary search
+// over the descriptors' first tiles (none a cell, no divide a cell).
+// K6's stats pass is one dependent chain per pair (the order is the
+// contract): a screen's time is at least its longest region times one
+// float32 add's latency.  So all pairs run at once, one warp each, in one
+// launch, and the chain reads shared memory that cp.async filled chunks
+// ahead, so it never waits on device memory; the apply pass is elementwise
+// and bound by bytes (S read, out written).  Measured on an NVIDIA H100 80GB HBM3 at a 700 W power
+// limit: K6 0.79 ms for a 1024-template profile screen in one launch
+// (stats 0.52 ms, apply 0.26 ms; 253 launches took 431 ms before), 0.30 ms
+// for the 258 x 258 bucket alone: the chain runs about 9 cycles an
+// element, against 4 for its adds alone.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,14 +84,17 @@ __constant__ uint64_t kTab[32] = {
 };
 
 // glibc's main path (e_expf.c): z = InvLn2N * x; k = round(z);
-// r = z - k; s = 2^(k/32); y = s * (C0 r^3 + C1 r^2 + C2 r + 1).
-__device__ __forceinline__ float expf_replica(float x) {
+// r = z - k; s = 2^(k/32); y = s * (C0 r^3 + C1 r^2 + C2 r + 1).  tab is
+// kTab staged in shared memory: a warp's 32 indices differ, and constant
+// memory would serve them one address at a time.
+__device__ __forceinline__ float expf_replica(float x,
+                                              const uint64_t* tab) {
   const double xd = (double)x;
   const double zs = __fma_rn(kInvLn2N, xd, kShift);
   const uint64_t ki = (uint64_t)__double_as_longlong(zs);
   const double kd = __dsub_rn(zs, kShift);
   const double r = __fma_rn(kInvLn2N, xd, -kd);
-  const uint64_t t = kTab[ki % 32] + (ki << 47);
+  const uint64_t t = tab[ki % 32] + (ki << 47);
   const double s = __longlong_as_double((long long)t);
   const double z2 = __fma_rn(kC0, r, kC1);
   const double r2 = __dmul_rn(r, r);
@@ -92,48 +104,165 @@ __device__ __forceinline__ float expf_replica(float x) {
   return __double2float_rn(y);
 }
 
-__device__ __forceinline__ float expf_domain(float x) {
+__device__ __forceinline__ float expf_domain(float x, const uint64_t* tab) {
   if (x != x) return x;
-  if (fabsf(x) < 87.0f) return expf_replica(x);
+  if (fabsf(x) < 87.0f) return expf_replica(x, tab);
   return x > 0.0f ? __int_as_float(0x7f800000) : 0.0f;
 }
 
-// q_aa (q2, ka), q_zsse (q2, ks), q_conf (q2,); t_aa (n, t2, ka),
-// t_zsse (n, t2, ks), t_conf (n, t2); S (n, q2, t2).
-__global__ void hmap_sim_kernel(const float* __restrict__ q_aa,
-                                const float* __restrict__ q_zsse,
-                                const float* __restrict__ q_conf,
-                                const float* __restrict__ t_aa,
-                                const float* __restrict__ t_zsse,
-                                const float* __restrict__ t_conf, float alpha,
-                                float* __restrict__ S, int n, int q2, int t2,
-                                int ka, int ks) {
-  const size_t total = (size_t)n * q2 * t2;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const size_t qt = (size_t)q2 * t2;
-  const size_t p = idx / qt;
-  const int i = (int)((idx % qt) / t2);
-  const int j = (int)(idx % t2);
-  if (i == 0 || i == q2 - 1 || j == 0 || j == t2 - 1) {
-    S[idx] = 0.0f;
-    return;
+// ------------------------------------------------------------------ K5
+//
+// One pair of a K5 launch (40 bytes; ops/hmap_device.SIM_PAIR_DTYPE mirrors
+// it): its template rows t_aa (t2, ka), t_zsse (t2, ks) and t_conf (t2,),
+// its raw similarity S (q2, t2), all row-major, t2, and its first tile (a
+// tile is kTileT columns of the pair, every row).
+struct SimPair {
+  const float* t_aa;
+  const float* t_zsse;
+  const float* t_conf;
+  float* S;
+  int32_t t2, tile0;
+};
+
+constexpr int kTileQ = 32;                         // query rows a pass
+constexpr int kTileT = 64;                         // template columns
+constexpr int kSimWarps = kThreads / 32;
+constexpr int kRowsPerThread = kTileQ / kSimWarps;  // 4: one 16-byte load
+constexpr int kLdQ = kTileQ + 4;  // staged query k-row: 16-byte aligned
+constexpr int kLdT = kTileT + 1;  // staged template k-row: bank-skewed
+constexpr int kSimSmemMax = 48 * 1024;
+
+// dst[(k0 + k) * ld + r] = src[r * width + k] for r < rows, k < width: the
+// rows read as one contiguous run, stored transposed (a k-row per feature).
+__device__ __forceinline__ void stage_rows(float* dst, int ld, int k0,
+                                           const float* __restrict__ src,
+                                           int width, int rows) {
+  const int total = rows * width;
+  for (int e = threadIdx.x; e < total; e += kThreads) {
+    const int r = e / width;  // 32-bit, once per staged value and block
+    dst[(k0 + e - r * width) * ld + r] = __ldg(src + e);
   }
-  const size_t tj = p * t2 + j;
-  const float* qa = q_aa + (size_t)i * ka;
-  const float* ta = t_aa + tj * ka;
-  float ip = qa[0] * ta[0];
-  for (int k = 1; k < ka; ++k) ip = ip + qa[k] * ta[k];
-  const float* qz = q_zsse + (size_t)i * ks;
-  const float* tz = t_zsse + tj * ks;
-  float dot = qz[0] * tz[0];
-  for (int k = 1; k < ks; ++k) dot = dot + qz[k] * tz[k];
-  const float pc = dot / (float)ks;
-  float arg = alpha * pc;
-  arg = arg * q_conf[i];
-  arg = arg * t_conf[tj];
-  const float v = ip * expf_domain(arg);
-  S[idx] = fabsf(v) <= kFltMax ? v : 0.0f;  // nan_to_num: NaN, +-inf -> 0
+}
+
+// The cells (i0 + warp * 4 + r, j0 + lane + 32 c), c < C, of a pass: both
+// dot chains in k order, each started as a product (fl(0 + x) would turn
+// -0.0 into +0.0), then the scalar tail, written to S unless off the pair.
+template <int C>
+__device__ __forceinline__ void sim_cells(const float* __restrict__ sq,
+                                          const float* __restrict__ st,
+                                          const uint64_t* tab, int ka,
+                                          int ks, float alpha,
+                                          float* __restrict__ S, int q2,
+                                          int t2, int i0, int j0) {
+  constexpr int R = kRowsPerThread;
+  const int lane = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * R;
+  float ip[R][C], dot[R][C];
+  float a[R], b[C];
+  auto load = [&](int k) {
+    const float4 v = *reinterpret_cast<const float4*>(sq + k * kLdQ + r0);
+    a[0] = v.x;
+    a[1] = v.y;
+    a[2] = v.z;
+    a[3] = v.w;
+#pragma unroll
+    for (int c = 0; c < C; ++c) b[c] = st[k * kLdT + lane + 32 * c];
+  };
+  load(0);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c) ip[r][c] = a[r] * b[c];
+#pragma unroll 4
+  for (int k = 1; k < ka; ++k) {
+    load(k);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) ip[r][c] = ip[r][c] + a[r] * b[c];
+  }
+  load(ka);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c) dot[r][c] = a[r] * b[c];
+  for (int k = ka + 1; k < ka + ks; ++k) {
+    load(k);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) dot[r][c] = dot[r][c] + a[r] * b[c];
+  }
+  load(ka + ks);  // the confidences
+  const float ksf = (float)ks;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r0 + r;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int j = j0 + lane + 32 * c;
+      if (i >= q2 || j >= t2) continue;
+      float v = 0.0f;
+      if (i != 0 && i != q2 - 1 && j != 0 && j != t2 - 1) {
+        const float pc = dot[r][c] / ksf;
+        float arg = alpha * pc;
+        arg = arg * a[r];
+        arg = arg * b[c];
+        const float x = ip[r][c] * expf_domain(arg, tab);
+        v = fabsf(x) <= kFltMax ? x : 0.0f;  // nan_to_num: NaN, +-inf -> 0
+      }
+      S[(size_t)i * t2 + j] = v;
+    }
+  }
+}
+
+// One tile of one pair per block: its kTileT template columns staged once,
+// then every row of S in passes of kTileQ query rows.  The query comes
+// transposed, qt (ka + ks + 1, q2): its profile, SSE z-rows and
+// confidences as k-rows, so a pass stages it with coalesced loads and no
+// division.  The pair is the last whose first tile is at or below the
+// block.
+__global__ void __launch_bounds__(kThreads, 5)
+    hmap_sim_kernel(const SimPair* __restrict__ pairs, int n,
+                    const float* __restrict__ qt, int q2, int ka, int ks,
+                    float alpha) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t tab[32];
+  const int w = ka + ks + 1;    // features a row: profile, SSE, confidence
+  float* sq = smem;             // w x kLdQ
+  float* st = smem + w * kLdQ;  // w x kLdT
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x < 32) tab[threadIdx.x] = kTab[threadIdx.x];
+  const int blk = blockIdx.x;
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (pairs[mid].tile0 <= blk) lo = mid;
+    else hi = mid - 1;
+  }
+  const SimPair pr = pairs[lo];
+  const int t2 = pr.t2;
+  const int j0 = (blk - pr.tile0) * kTileT;
+  const int nt = min(kTileT, t2 - j0);
+  stage_rows(st, kLdT, 0, pr.t_aa + (size_t)j0 * ka, ka, nt);
+  stage_rows(st, kLdT, ka, pr.t_zsse + (size_t)j0 * ks, ks, nt);
+  stage_rows(st, kLdT, ka + ks, pr.t_conf + j0, 1, nt);
+  for (int i0 = 0; i0 < q2; i0 += kTileQ) {
+    const int nq = min(kTileQ, q2 - i0);
+    for (int k = warp; k < w; k += kSimWarps)
+      if (lane < nq)
+        sq[k * kLdQ + lane] = __ldg(qt + (size_t)k * q2 + i0 + lane);
+    __syncthreads();
+    // rows past the pair leave their warp idle; a tile of at most 32
+    // columns computes one column a thread (both uniform in a warp)
+    if (warp * kRowsPerThread < nq) {
+      if (nt > 32)
+        sim_cells<2>(sq, st, tab, ka, ks, alpha, pr.S, q2, t2, i0, j0);
+      else
+        sim_cells<1>(sq, st, tab, ka, ks, alpha, pr.S, q2, t2, i0, j0);
+    }
+    __syncthreads();
+  }
 }
 
 // ------------------------------------------------------------------ K6
@@ -319,25 +448,28 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-unsigned grid_of(size_t total) {
-  return (unsigned)((total + kThreads - 1) / kThreads);
-}
-
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  Every pointer is a device
 // pointer; stream is a cudaStream_t.  Each returns cudaGetLastError() of
 // its launches (0 = cudaSuccess).
 
-extern "C" int hmap_sim_launch(const float* q_aa, const float* q_zsse,
-                               const float* q_conf, const float* t_aa,
-                               const float* t_zsse, const float* t_conf,
-                               float alpha, float* S, int n, int q2, int t2,
-                               int ka, int ks, void* stream) {
-  const size_t total = (size_t)n * q2 * t2;
-  hmap_sim_kernel<<<grid_of(total), kThreads, 0, (cudaStream_t)stream>>>(
-      q_aa, q_zsse, q_conf, t_aa, t_zsse, t_conf, alpha, S, n, q2, t2, ka,
-      ks);
+// K5 over n pairs (SimPair descriptors in device memory, their first
+// tiles ascending from 0) and tiles tiles of tile_t columns, which must be
+// this file's kTileT, run in passes of tile_q = kTileQ rows (the wrapper's
+// descriptors count them so); qt is the query transposed, (ka + ks + 1,
+// q2).  cudaErrorInvalidValue when the tiles are not this file's, or when
+// the staged rows exceed kSimSmemMax.
+extern "C" int hmap_sim_launch(const void* pairs, int n, int tiles,
+                               const float* qt, int q2, int ka, int ks,
+                               float alpha, int tile_q, int tile_t,
+                               void* stream) {
+  const size_t smem = sizeof(float) * (size_t)(ka + ks + 1) * (kLdQ + kLdT);
+  if (n < 1 || tiles < n || q2 < 3 || ka < 1 || ks < 1 ||
+      tile_q != kTileQ || tile_t != kTileT || smem > kSimSmemMax)
+    return (int)cudaErrorInvalidValue;
+  hmap_sim_kernel<<<tiles, kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const SimPair*>(pairs), n, qt, q2, ka, ks, alpha);
   return (int)cudaGetLastError();
 }
 

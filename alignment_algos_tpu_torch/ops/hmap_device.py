@@ -13,9 +13,9 @@ simmatrix.h:50-73):
     S   = (S - avg) / std - zero_shift on [1, q2-1) x [1, t2-1), 0 borders
 
 Two hand-written kernels (``csrc/hmap_device.cu``) carry it, each beside
-its plain PyTorch version: K5 (:func:`hmap_sim`, one launch per length
-bucket) the raw similarity, K6 (:func:`hmap_znorm_ragged`, one launch over
-every bucket of a screen) the z-norm and shift.  The z-norm's mean and
+its plain PyTorch version and each one launch over every bucket of a
+screen: K5 (:func:`hmap_sim_ragged`) the raw similarity, K6
+(:func:`hmap_znorm_ragged`) the z-norm and shift.  The z-norm's mean and
 variance are strictly serial float32 sums in row-major region order
 (``utils/hmath.seq_sum_f32``): ``torch.sum`` and ``torch.cumsum`` round
 differently (the CPU accumulates float32 in double, CUDA scans in
@@ -45,9 +45,11 @@ from ..utils.params import AlignT, HMAPaliParams
 from . import _build, dp_engine, dp_scores
 from .expf import expf_plain
 
-__all__ = ["DeviceLibrary", "HMAPaliEval", "HMAPaliParams", "ZPAIR_DTYPE",
-           "bucket_tables", "build_similarity_device", "hmap_sim",
-           "hmap_sim_plain", "query_tensors", "ragged_flags",
+__all__ = ["DeviceLibrary", "HMAPaliEval", "HMAPaliParams", "K5_TILE",
+           "SIM_PAIR_DTYPE", "ZPAIR_DTYPE", "bucket_tables",
+           "build_similarity_device", "hmap_sim", "hmap_sim_plain",
+           "hmap_sim_ragged", "hmap_sim_ragged_plain", "query_tensors",
+           "ragged_flags",
            "hmap_znorm", "hmap_znorm_plain", "hmap_znorm_ragged",
            "hmap_znorm_ragged_plain", "pack_sequence",
            "pack_template_costs", "screen_buckets", "screen_hmap_device",
@@ -121,6 +123,14 @@ def hmap_sim_plain(q_aa, q_zsse, q_conf, t_aa, t_zsse, t_conf,
     return torch.where(_border(q2, t2, S.device), 0.0, S)
 
 
+def hmap_sim_ragged_plain(q_aa, q_zsse, q_conf, stacks,
+                          alpha: float) -> list:
+    """Plain version of K5 over every stack ``(t_aa, t_zsse, t_conf)`` of
+    ``stacks``: :func:`hmap_sim_plain` of each, in order."""
+    return [hmap_sim_plain(q_aa, q_zsse, q_conf, *st, alpha)
+            for st in stacks]
+
+
 def _check_f32(dev, **xs):
     for name, x in xs.items():
         if x.dtype != torch.float32:
@@ -139,51 +149,153 @@ def _cuda_stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _check_sim(q_aa, q_zsse, q_conf, stacks):
+    """Validate K5's input contract; returns (device, q2, ka, ks)."""
+    dev = q_aa.device
+    _check_f32(dev, q_aa=q_aa, q_zsse=q_zsse, q_conf=q_conf)
+    if q_aa.dim() != 2 or q_zsse.dim() != 2:
+        raise ValueError("q_aa must be (q2, ka) and q_zsse (q2, ks)")
+    q2, ka = q_aa.shape
+    ks = q_zsse.shape[1]
+    if tuple(q_conf.shape) != (q2,):
+        raise ValueError(f"q_conf must be ({q2},), got {tuple(q_conf.shape)}")
+    if not stacks:
+        raise ValueError("K5 needs at least one stack")
+    for t_aa, t_zsse, t_conf in stacks:
+        _check_f32(dev, t_aa=t_aa, t_zsse=t_zsse, t_conf=t_conf)
+        if t_aa.dim() != 3:
+            raise ValueError("t_aa must be (n, t2, ka)")
+        n, t2, _ = t_aa.shape
+        want = {"t_aa": (n, t2, ka), "t_zsse": (n, t2, ks), "t_conf": (n, t2)}
+        for name, x in (("t_aa", t_aa), ("t_zsse", t_zsse),
+                        ("t_conf", t_conf)):
+            if tuple(x.shape) != want[name]:
+                raise ValueError(f"{name} must be {want[name]}, got "
+                                 f"{tuple(x.shape)}")
+        if min(n, ka, ks) < 1 or q2 < 3 or t2 < 3:
+            raise ValueError(f"K5 needs n, ka, ks >= 1 and q2, t2 >= 3, got "
+                             f"n={n}, q2={q2}, t2={t2}, ka={ka}, ks={ks}")
+        if q2 * t2 >= 2 ** 31:
+            raise ValueError(f"K5 indexes a pair in 32 bits: q2 x t2 = "
+                             f"{q2} x {t2} is too large")
+    return dev, q2, ka, ks
+
+
+# K5's tile: a block computes K5_TILE[1] template columns of one pair, in
+# passes of K5_TILE[0] query rows (csrc/hmap_device.cu kTileQ, kTileT; the
+# launcher refuses any other).
+K5_TILE = (32, 64)
+
+# One pair of a K5 launch, as ``struct SimPair`` of csrc/hmap_device.cu:
+# the device addresses of its template rows and of its S, t2 and its first
+# tile.
+SIM_PAIR_DTYPE = np.dtype([("t_aa", "<u8"), ("t_zsse", "<u8"),
+                           ("t_conf", "<u8"), ("S", "<u8"), ("t2", "<i4"),
+                           ("tile0", "<i4")])
+
+
+def _sim_descriptors(q2: int, ka: int, ks: int, shapes, addrs):
+    """The pairs of a K5 launch from each stack's (n, t2) and base
+    addresses (t_aa, t_zsse, t_conf, S), in K6's order (longest region
+    first, stable), each with its first tile of ``K5_TILE[1]`` columns:
+    (pairs, the launch's tile count).  Offsets are 64-bit."""
+    n = np.asarray([sh[0] for sh in shapes], np.int64)
+    t2 = np.asarray([sh[1] for sh in shapes], np.int64)
+    p = (np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)).astype(
+        np.uint64)
+    base = np.asarray(addrs, np.uint64).reshape(len(shapes), 4)
+    pairs = np.zeros(len(p), SIM_PAIR_DTYPE)
+    for col, (field, width) in enumerate((("t_aa", ka), ("t_zsse", ks),
+                                          ("t_conf", 1), ("S", q2))):
+        step = np.repeat((4 * width * t2).astype(np.uint64), n)
+        pairs[field] = np.repeat(base[:, col], n) + p * step
+    pairs["t2"] = np.repeat(t2, n)
+    region = (q2 - 2) * (pairs["t2"].astype(np.int64) - 2)
+    pairs = pairs[np.argsort(-region, kind="stable")]
+    tiles = -(-pairs["t2"].astype(np.int64) // K5_TILE[1])
+    if tiles.sum() >= 2 ** 31:
+        raise ValueError(f"K5: {tiles.sum()} tiles exceed one launch's grid")
+    pairs["tile0"] = np.cumsum(tiles) - tiles
+    return np.ascontiguousarray(pairs), int(tiles.sum())
+
+
+class SimPlan(NamedTuple):
+    """One K5 launch's state on the card: the outputs (views into one
+    allocation, in stack order), the descriptors in device memory, the
+    query transposed (ka + ks + 1, q2), the pair and tile counts and the
+    query's (q2, ka, ks)."""
+    outs: list
+    desc: torch.Tensor
+    qt: torch.Tensor
+    pairs: int
+    tiles: int
+    dims: tuple
+
+
+def _sim_plan(q_aa, q_zsse, q_conf, stacks) -> SimPlan:
+    """K5's launch state for the checked CUDA ``stacks``; the descriptors'
+    copy and the query's transpose are queued on the current stream."""
+    dev = q_aa.device
+    q2, ka = q_aa.shape
+    ks = q_zsse.shape[1]
+    shapes = [tuple(t_aa.shape[:2]) for t_aa, _, _ in stacks]
+    sizes = [n * q2 * t2 for n, t2 in shapes]
+    flat = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
+    outs = [x.view(n, q2, t2) for x, (n, t2) in
+            zip(torch.split(flat, sizes), shapes)]
+    pairs, tiles = _sim_descriptors(
+        q2, ka, ks, shapes, [(a.data_ptr(), z.data_ptr(), c.data_ptr(),
+                              S.data_ptr())
+                             for (a, z, c), S in zip(stacks, outs)])
+    with torch.cuda.device(dev):
+        desc = torch.from_numpy(pairs.view(np.uint8)).pin_memory().to(
+            dev, non_blocking=True)
+    qt = torch.cat([q_aa, q_zsse, q_conf[:, None]], dim=1).t().contiguous()
+    return SimPlan(outs, desc, qt, len(pairs), tiles, (q2, ka, ks))
+
+
+def _sim_launch(plan: SimPlan, alpha: float) -> None:
+    """Launch K5 over ``plan`` on the current stream."""
+    dev = plan.desc.device
+    with torch.cuda.device(dev):
+        err = _build.load().lib.hmap_sim_launch(
+            plan.desc.data_ptr(), plan.pairs, plan.tiles, plan.qt.data_ptr(),
+            *plan.dims, float(np.float32(alpha)), *K5_TILE,
+            _cuda_stream(dev))
+    _build.check(err, "hmap_sim_launch")
+
+
+def hmap_sim_ragged(q_aa, q_zsse, q_conf, stacks, alpha: float) -> list:
+    """K5: raw HMAP similarity of one query against every stack of
+    same-length templates in ``stacks`` (a sequence of (t_aa, t_zsse,
+    t_conf), one per length bucket); returns one (n, q2, t2) tensor per
+    stack, in order.
+
+    q_aa (q2, ka), q_zsse (q2, ks), q_conf (q2,); t_aa (n, t2, ka), t_zsse
+    (n, t2, ks), t_conf (n, t2); float32, contiguous, one device.  CPU
+    tensors run :func:`hmap_sim_ragged_plain`; CUDA tensors launch the
+    kernel once over every pair of every stack, on the current stream and
+    without a host sync, the outputs views into one allocation (a build or
+    launch failure raises)."""
+    stacks = [tuple(st) for st in stacks]
+    dev, *_ = _check_sim(q_aa, q_zsse, q_conf, stacks)
+    if _cuda_stream(dev) is None:
+        return hmap_sim_ragged_plain(q_aa, q_zsse, q_conf, stacks, alpha)
+    plan = _sim_plan(q_aa, q_zsse, q_conf, stacks)
+    _sim_launch(plan, alpha)
+    hmap_sim_ragged.launches += 1
+    return plan.outs
+
+
+hmap_sim_ragged.launches = 0
+
+
 def hmap_sim(q_aa, q_zsse, q_conf, t_aa, t_zsse, t_conf,
              alpha: float) -> torch.Tensor:
-    """K5: raw HMAP similarity (n, q2, t2) of one query against n
-    same-length templates.
-
-    q_aa (q2, ka), q_zsse (q2, ks), q_conf (q2,); t_aa (n, t2, ka),
-    t_zsse (n, t2, ks), t_conf (n, t2); float32, contiguous, one device.
-    CPU tensors run :func:`hmap_sim_plain`; CUDA tensors launch the
-    kernel."""
-    dev = t_aa.device
-    _check_f32(dev, q_aa=q_aa, q_zsse=q_zsse, q_conf=q_conf, t_aa=t_aa,
-               t_zsse=t_zsse, t_conf=t_conf)
-    if q_aa.dim() != 2 or t_aa.dim() != 3:
-        raise ValueError("q_aa must be (q2, ka) and t_aa (n, t2, ka)")
-    q2, ka = q_aa.shape
-    n, t2, _ = t_aa.shape
-    ks = q_zsse.shape[-1]
-    want = {"t_aa": (n, t2, ka), "q_zsse": (q2, ks), "q_conf": (q2,),
-            "t_zsse": (n, t2, ks), "t_conf": (n, t2)}
-    for name, x in (("t_aa", t_aa), ("q_zsse", q_zsse), ("q_conf", q_conf),
-                    ("t_zsse", t_zsse), ("t_conf", t_conf)):
-        if tuple(x.shape) != want[name]:
-            raise ValueError(f"{name} must be {want[name]}, got "
-                             f"{tuple(x.shape)}")
-    if min(n, ka, ks) < 1 or q2 < 3 or t2 < 3:
-        raise ValueError(f"K5 needs n, ka, ks >= 1 and q2, t2 >= 3, got "
-                         f"n={n}, q2={q2}, t2={t2}, ka={ka}, ks={ks}")
-    stream = _cuda_stream(dev)
-    if stream is None:
-        return hmap_sim_plain(q_aa, q_zsse, q_conf, t_aa, t_zsse, t_conf,
-                              alpha)
-    lib = _build.load().lib
-    S = torch.empty((n, q2, t2), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.hmap_sim_launch(
-            q_aa.data_ptr(), q_zsse.data_ptr(), q_conf.data_ptr(),
-            t_aa.data_ptr(), t_zsse.data_ptr(), t_conf.data_ptr(),
-            float(np.float32(alpha)), S.data_ptr(), n, q2, t2, ka, ks,
-            stream)
-    _build.check(err, "hmap_sim_launch")
-    hmap_sim.launches += 1
-    return S
-
-
-hmap_sim.launches = 0
+    """K5 on one stack of n same-length templates: :func:`hmap_sim_ragged`
+    of ``[(t_aa, t_zsse, t_conf)]`` (its launch counts there)."""
+    return hmap_sim_ragged(q_aa, q_zsse, q_conf, [(t_aa, t_zsse, t_conf)],
+                           alpha)[0]
 
 
 # ------------------------------------------------ K6: z-norm and the shift
@@ -486,11 +598,12 @@ def _znorm(Ss, params) -> list:
                              normalize=bool(params.normalize_mtx))
 
 
-def _raw_similarity(qt: dict, b: dict, params) -> torch.Tensor:
-    """K5 for one bucket (``b`` a :class:`DeviceLibrary` bucket, ``qt``
-    :func:`query_tensors`)."""
-    return hmap_sim(qt["aa"], qt["zsse"], qt["conf"], b["aa"], b["zsse"],
-                    b["conf"], float(np.float32(params.alpha)))
+def _raw_similarity(qt: dict, buckets, params) -> list:
+    """K5 over the :class:`DeviceLibrary` buckets ``buckets`` (one launch;
+    ``qt`` :func:`query_tensors`)."""
+    return hmap_sim_ragged(qt["aa"], qt["zsse"], qt["conf"],
+                           [(b["aa"], b["zsse"], b["conf"]) for b in buckets],
+                           float(np.float32(params.alpha)))
 
 
 def ragged_flags(params) -> dict:
@@ -503,12 +616,11 @@ def ragged_flags(params) -> dict:
 
 def screen_buckets(qt: dict, library: "DeviceLibrary", params) -> list:
     """K3's ragged input for the whole library: per bucket (S, D, A, B,
-    None), S from K5 (one launch per bucket) and then K6 (one launch over
-    every bucket) on the library's device, no host sync;
-    ``dp_scores.dp_general_ragged`` takes the list with
-    :func:`ragged_flags`."""
+    None), S from K5 and then K6, each one launch over every bucket, on
+    the library's device, no host sync; ``dp_scores.dp_general_ragged``
+    takes the list with :func:`ragged_flags`."""
     buckets = list(library.buckets.values())
-    Ss = _znorm([_raw_similarity(qt, b, params) for b in buckets], params)
+    Ss = _znorm(_raw_similarity(qt, buckets, params), params)
     return [(S, b["D"], b["A"], b["B"], None) for S, b in zip(Ss, buckets)]
 
 
@@ -517,7 +629,7 @@ def bucket_tables(qt: dict, b: dict, params):
     S, then ``dp_scores.prepare_tables`` rebuilds D from the gap vectors
     and builds the insertion tables there (the input of
     ``dp_scores.dp_general``)."""
-    S, = _znorm([_raw_similarity(qt, b, params)], params)
+    S, = _znorm(_raw_similarity(qt, [b], params), params)
     return dp_scores.prepare_tables(
         S, b["D"], b["A"], b["B"], torch.zeros_like(b["A"]), has_c=False,
         vec_d=True, **ragged_flags(params))
@@ -557,7 +669,7 @@ def screen_hmap_device(query, templates, params, k: int = 10,
     on ``device``; scores bit-identical to the JAX package's
     ``screen_profiles`` with an ``HMAPaliEval`` factory.
 
-    K5 per length bucket and K6 once (:func:`screen_buckets`), then K3 once
+    K5 once and K6 once (:func:`screen_buckets`), then K3 once
     over every bucket whose t2 it holds (``dp_scores.vec_max_t2``: all of
     them on the CPU) and one copy of the scores to the host; a longer
     template's bucket goes to K7 (:func:`_scores_k7`).  Returns (scores

@@ -11,8 +11,8 @@ hand-written Hopper kernels carry the screen:
   running max and its anti-diagonal.  It replaces
   ``swaffine._sw_tb_kernel``.
 * :func:`sw_decode` (K8, ``csrc/sw_decode.cu``): the walk of K2's codes
-  into matched-pair records.  It replaces the XLA device loop
-  ``swaffine._decode_tb_device``.
+  into matched-pair records, in the mode :func:`k8_plan` picks.  It
+  replaces the XLA device loop ``swaffine._decode_tb_device``.
 
 Beside each kernel is its plain PyTorch version, a line-by-line port of
 the JAX twin (``sw_affine_scores_xla`` / ``sw_affine_tb_xla`` over the
@@ -29,6 +29,8 @@ query shared by all lanes, or (Q, B) for one query per lane; template codes
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -421,6 +423,40 @@ def decode_tb_plain(tb: torch.Tensor, m: torch.Tensor, dat: torch.Tensor,
     return scores, rec_i, rec_j
 
 
+K8_WINDOW = (64, 32)      # csrc/sw_decode.cu kDw x kIw: a window's codes
+K8_WINDOW_LANES = 512     # lanes up to which a decode takes windows
+
+
+@dataclass(frozen=True)
+class K8Plan:
+    """How K8 decodes one shape: ``mode`` "windowed" (one block a lane,
+    the lane's codes staged in shared memory in windows of ``dw``
+    anti-diagonals x ``iw`` rows) or "lane" (one thread a lane, each step
+    read from device memory; dw = iw = 0)."""
+    mode: str
+    dw: int
+    iw: int
+
+
+def k8_plan(q: int, t: int, b: int, nd: int, qp: int, ldb: int,
+            mode: str | None = None) -> K8Plan:
+    """K8's plan for a decode of b lanes of q x t walks over tb (nd, qp,
+    ldb): windowed up to :data:`K8_WINDOW_LANES` lanes, where a window's
+    load and shared-memory steps beat a device-memory latency a step, else
+    the lane mode, whose traffic is one sector a step against a window's
+    sector a cell once ldb >= 32 (the windowed mode's traffic grows with
+    the lanes, the lane mode's time stays a walk's latency).  ``mode``
+    forces one.  A window is :data:`K8_WINDOW` clipped to the matrix (nd x
+    qp)."""
+    if mode is None:
+        mode = "windowed" if b <= K8_WINDOW_LANES else "lane"
+    if mode == "lane":
+        return K8Plan("lane", 0, 0)
+    if mode != "windowed":
+        raise ValueError(f"K8 has no mode {mode!r}")
+    return K8Plan("windowed", min(K8_WINDOW[0], nd), min(K8_WINDOW[1], qp))
+
+
 def _check_decode(tb, m, dat, q: int, t: int, b: int) -> None:
     """Validate K8's input contract (tb (ND, QP, LDB) int8; m, dat (>= q,
     LDM) float32 / int32; 1 <= b <= min(LDB, LDM))."""
@@ -444,13 +480,21 @@ def _check_decode(tb, m, dat, q: int, t: int, b: int) -> None:
 
 
 def sw_decode(tb: torch.Tensor, m: torch.Tensor, dat: torch.Tensor, *,
-              q: int, t: int, b: int):
+              q: int, t: int, b: int, plan: K8Plan | None = None):
     """K8: the traceback decode of K2's codes (counterpart of the JAX
     ``_decode_tb_device``); returns what :func:`decode_tb_plain` returns.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    (``csrc/sw_decode.cu``), with no host sync."""
+    (``csrc/sw_decode.cu``) in the mode of ``plan`` (default
+    :func:`k8_plan`'s; a plan made for another shape raises), with no host
+    sync."""
     _check_decode(tb, m, dat, q, t, b)
+    shape = (q, t, b, *tb.shape)
+    if plan is None:
+        plan = k8_plan(*shape)
+    elif plan != k8_plan(*shape, mode=plan.mode):
+        raise ValueError(f"K8: {plan} is not the plan of q, t, b = {q}, {t}, "
+                         f"{b} over tb {tuple(tb.shape)}")
     if tb.device.type == "cpu":
         return decode_tb_plain(tb, m, dat, q=q, t=t, b=b)
     if tb.device.type != "cuda":
@@ -461,16 +505,23 @@ def sw_decode(tb: torch.Tensor, m: torch.Tensor, dat: torch.Tensor, *,
     # the kernel writes every entry: a match's (i, j), else -1
     rec_i = torch.empty((max_steps, b), dtype=torch.int32, device=dev)
     rec_j = torch.empty((max_steps, b), dtype=torch.int32, device=dev)
-    lib = _build.load().lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sw_decode_launch(
-            tb.data_ptr(), m.data_ptr(), dat.data_ptr(), scores.data_ptr(),
-            rec_i.data_ptr(), rec_j.data_ptr(), q, t, b, *tb.shape,
-            m.shape[1], stream)
-    _build.check(err, "sw_decode_launch")
+    _decode_launch(tb, m, dat, scores, rec_i, rec_j, q, t, b, plan)
     sw_decode.launches += 1
     return scores, rec_i, rec_j
+
+
+def _decode_launch(tb, m, dat, scores, rec_i, rec_j, q: int, t: int, b: int,
+                   plan: K8Plan) -> None:
+    """Launch K8 in ``plan``'s mode on the current stream, into the
+    outputs ``scores`` (b,), ``rec_i`` and ``rec_j`` (q + t + 2, b)."""
+    dev = tb.device
+    with torch.cuda.device(dev):
+        err = _build.load().lib.sw_decode_launch(
+            tb.data_ptr(), m.data_ptr(), dat.data_ptr(), scores.data_ptr(),
+            rec_i.data_ptr(), rec_j.data_ptr(), q, t, b, *tb.shape,
+            m.shape[1], int(plan.mode == "windowed"), plan.dw, plan.iw,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "sw_decode_launch")
 
 
 sw_decode.launches = 0

@@ -16,8 +16,10 @@
    ``screen_library_host`` (plain version on the card, ranked by
    ``np.lexsort``).  K8 (the traceback decode) on K2's output at 512 x
    512 x 10 and at the stripe and chunk edges, at both gap settings,
-   against its plain version (``torch.equal``) and its paths against the
-   numpy decode.
+   in both its modes (windowed and one thread a lane) against its plain
+   version (``torch.equal``) and its paths against the numpy decode, and
+   at 512 x 512 x 1024 (``--top_k 1024``), each mode timed at both
+   sizes.
 4. Drives the FASTA main path, ``aat_screen`` (the port's
    ``cli/screen.py``), at a deployment's size: one 512-residue query
    against 5120 templates of 64-512 residues padded to 512 with the pad
@@ -36,27 +38,29 @@
    K3 (scores and full-H modes, global and local, HMAP vec_d tables and
    full-D tables with a C term, odd shapes and full-size buckets) against
    its plain version and against the numpy ``dp_ref`` engine on 2 pairs,
-   K5 against its plain version on 2 buckets, K6 (one launch over every
-   bucket, as the screen runs it) against its plain version on the whole
-   library and on odd shapes (a 1 x 1 region, 1 x 698, past 2^17
-   elements, a first element of -0.0, a constant region), normalize on and
-   off, and K5 + K6 against the host ``HMAPaliEval.build_costs`` S for 16
-   templates, all with tolerance 0.
+   K5 and K6 (each one launch over every bucket, as the screen runs them)
+   against their plain versions on the whole library, K6 also on odd
+   shapes (a 1 x 1 region, 1 x 698, past 2^17 elements, a first element
+   of -0.0, a constant region), normalize on and off, and K5 + K6 against
+   the host ``HMAPaliEval.build_costs`` S for 16 templates, all with
+   tolerance 0.
    Then ``aat_screen --profiles 1`` over the 1024 templates (the homologs
    must rank 1-8; K3, K5 and K6 must launch), the same CLI on the first 64
    templates on the card and with ``AAT_TORCH_DEVICE=cpu`` (byte-equal
    stdout), and ``--smap 1`` on the repository's SMAP fixtures on the card
    and on the CPU (byte-equal stdout).  The screen launches K3 once, over
    the whole library (its ragged wrapper, the costs built in the kernel
-   from the gap vectors), K5 once per length bucket and K6 once: the run
-   fails on other counts.  A last screen has a 7,300-residue template,
-   past K3's shared-memory cap: K7 must score its bucket and every score
-   must equal host ``build_costs`` + ``dp_ref``.  K3 and K6 are held
-   against their plain versions bit for bit (an int32 view, NaN at the
-   same places).  Times K3 on the whole library (beside its
+   from the gap vectors), K5 once and K6 once: the run fails on other
+   counts.  A last screen has a 7,300-residue template, past K3's
+   shared-memory cap: K7 must score its bucket and every score must equal
+   host ``build_costs`` + ``dp_ref``.  K3, K5 and K6 are held against
+   their plain versions bit for bit (an int32 view, NaN at the same
+   places).  Times K3 on the whole library (beside its
    bound), on a full bucket and on a 64-pair 258 x 258 batch (each as a
-   ragged launch and in the table form), K5 on a full bucket, and K6 on
-   the whole library and on a full bucket, each against its plain version.
+   ragged launch and in the table form), K5 and K6 on the whole library
+   (through the wrapper and the launch alone) and on a full bucket, each
+   against its plain version, and as K5's yardstick ``torch.bmm`` of the
+   profile dot products at the largest bucket (not the same function).
 6. The exact DP builds behind the alignment tools.  Holds K7 (H as
    float32 bits, PQ and PT) against its plain version on odd shapes, three
    sub-rectangles, a bounded 130 x 97 build, a 386 x 404 pair (its
@@ -108,6 +112,8 @@ Q_LEN, N_LIB, T_MIN, T_MAX = 512, 5120, 64, 512
 N_HOMOLOGS, TOP_K, CHUNK = 8, 10, 1024
 GAPS = [(4.73, 0.34), (11.0, 1.0)]
 AA = "ARNDCQEGHILKMFPSTWYV"
+# K8's modes, and the lanes of its second timed shape (--top_k 1024)
+K8_MODES, K8_WIDE = ("windowed", "lane"), 1024
 K1_SRC = K2_SRC = "alignment_algos_tpu_torch/ops/csrc/sw_gotoh.cu"
 K8_SRC = "alignment_algos_tpu_torch/ops/csrc/sw_decode.cu"
 K3_SRC = "alignment_algos_tpu_torch/ops/csrc/dp_general.cu"
@@ -269,18 +275,23 @@ def check_kernels(sw, q, t, table, pad, dev):
         return got
 
     def k8_vs_plain_and_numpy(tb, m, dat, nq, nt):
+        """K8 in both its modes against the plain version and the numpy
+        decode."""
         b = m.shape[1]
-        got = sw.sw_decode(tb, m, dat, q=nq, t=nt, b=b)
         want = sw.decode_tb_plain(tb, m, dat, q=nq, t=nt, b=b)
-        torch.cuda.synchronize()
-        for g, w, name in zip(got, want, ("scores", "rec_i", "rec_j")):
-            assert g.shape == w.shape and torch.equal(g, w), f"K8 {name}"
-            err["k8"] = max(err["k8"], max_abs(g, w))
         scores, paths = sw.decode_local_tracebacks(
             tb.cpu().numpy(), m.cpu().numpy(), dat.cpu().numpy(), nq, nt)
-        np.testing.assert_array_equal(got[0].cpu().numpy(), scores)
-        assert sw._paths(got[1].cpu().numpy(), got[2].cpu().numpy(),
-                         b) == paths, "K8 paths != numpy decode"
+        for mode in K8_MODES:
+            got = sw.sw_decode(tb, m, dat, q=nq, t=nt, b=b, plan=sw.k8_plan(
+                nq, nt, b, *tb.shape, mode=mode))
+            torch.cuda.synchronize()
+            for g, w, name in zip(got, want, ("scores", "rec_i", "rec_j")):
+                assert g.shape == w.shape and torch.equal(g, w), \
+                    f"K8 ({mode}) {name}"
+                err["k8"] = max(err["k8"], max_abs(g, w))
+            np.testing.assert_array_equal(got[0].cpu().numpy(), scores)
+            assert sw._paths(got[1].cpu().numpy(), got[2].cpu().numpy(),
+                             b) == paths, f"K8 ({mode}) paths != numpy decode"
 
     rng = np.random.default_rng(SEED + 1)
     for gi, ge in GAPS:
@@ -306,7 +317,7 @@ def check_kernels(sw, q, t, table, pad, dev):
                 k8_vs_plain_and_numpy(*k2_vs_plain(*args), nq, nt)
         log(f"stripe and chunk edges {SW_EDGES} (Q, T, B): K1 and K2 equal "
             f"plain, shared query and one per lane, and K8 on K2's codes "
-            f"equals plain and the numpy decode, gaps {gi}/{ge}")
+            f"(both modes) equals plain and the numpy decode, gaps {gi}/{ge}")
 
         qd, td, tab, gap = sw.to_device(q, t, table, gi, ge, dev)
         full = sw.sw_affine_scores(qd, td, tab, gap)
@@ -326,8 +337,8 @@ def check_kernels(sw, q, t, table, pad, dev):
         k2_args = sw.to_device(hits, t[:TOP_K], table, gi, ge, dev)
         k8_vs_plain_and_numpy(*k2_vs_plain(*k2_args), Q_LEN, t.shape[1])
         log(f"K2 equals plain at {Q_LEN} x {t.shape[1]} x {TOP_K}, and K8 "
-            f"on its codes equals plain and the numpy decode, gaps "
-            f"{gi}/{ge}")
+            f"on its codes (both modes) equals plain and the numpy decode, "
+            f"gaps {gi}/{ge}")
 
         # the numpy oracle, in float32 throughout, on 2 lanes: the main
         # path's, and three query chunks (1031 rows)
@@ -357,40 +368,75 @@ def check_kernels(sw, q, t, table, pad, dev):
     k2_ms = cuda_ms(lambda: sw.sw_affine_tb(qh, th, tab, gap), 3)
     k2_plain_ms = cuda_ms(lambda: sw.sw_affine_tb_plain(
         sw.skewed_similarity(qh, th, tab), gap, q=Q_LEN, t=th.shape[0]), 1)
-    # K8 on K2's codes of the main path's hits, as the screen decodes them
+    # K8 on K2's codes of the main path's hits, as the screen decodes them,
+    # in its plan's mode and beside it in the other; then at --top_k's
+    # K8_WIDE lanes, checked and timed likewise
     tb, m, dat = sw.sw_affine_tb(qh, th, tab, gap)
     dec = dict(q=Q_LEN, t=th.shape[0], b=TOP_K)
     k8_ms = cuda_ms(lambda: sw.sw_decode(tb, m, dat, **dec), 5)
     k8_plain_ms = cuda_ms(lambda: sw.decode_tb_plain(tb, m, dat, **dec), 1)
+    k8_extra = k8_modes_ms(sw, tb, m, dat, dec, "")
+    walks = k8_walks(tb, m, dat, Q_LEN, TOP_K, *sw.K8_WINDOW)
+    k8_extra.update(walk_steps=walks["steps"], walk_windows=walks["windows"])
+    qw, tw, tab, gap = sw.to_device(np.broadcast_to(q, (K8_WIDE, Q_LEN)),
+                                    t[:K8_WIDE], table, gi, ge, dev)
+    wide = sw.sw_affine_tb(qw, tw, tab, gap)
+    k8_vs_plain_and_numpy(*wide, Q_LEN, tw.shape[0])
+    k8_extra.update(k8_modes_ms(sw, *wide, dict(q=Q_LEN, t=tw.shape[0],
+                                                 b=K8_WIDE), f"_{K8_WIDE}"))
+    log(f"K8 at {Q_LEN} x {th.shape[0]} x {TOP_K} and x {K8_WIDE} lanes, "
+        f"each mode: {json.dumps(k8_extra)}")
     return ({"k1": (err["k1"], k1_ms, k1_plain_ms),
              "k2": (err["k2"], k2_ms, k2_plain_ms),
              "k8": (err["k8"], k8_ms, k8_plain_ms)},
-            walk_reads(tb, m, dat, Q_LEN, TOP_K))
+            sum(walks["steps"]), k8_extra)
 
 
-def walk_reads(tb, m, dat, q: int, b: int) -> int:
-    """The tb bytes that the decode of these codes reads: one per step at
-    which a lane's walk is alive (K8's bound counts what this run's data
-    needs).  A scalar walk per lane on the host."""
+def k8_modes_ms(sw, tb, m, dat, dec: dict, tag: str) -> dict:
+    """K8's plan mode at ``dec``'s shape and each mode's launch alone on
+    preallocated outputs (mean of 5: at 10 lanes the wrapper's host work
+    outlasts the kernel)."""
+    import torch
+    shape = (dec["q"], dec["t"], dec["b"], *tb.shape)
+    out = {f"mode{tag}": sw.k8_plan(*shape).mode}
+    scores, rec_i, rec_j = sw.sw_decode(tb, m, dat, **dec)
+    for mode in K8_MODES:
+        plan = sw.k8_plan(*shape, mode=mode)
+        out[f"{mode}_launch_ms{tag}"] = cuda_ms(lambda: sw._decode_launch(
+            tb, m, dat, scores, rec_i, rec_j, **dec, plan=plan), 5)
+    torch.cuda.synchronize()
+    return out
+
+
+def k8_walks(tb, m, dat, q: int, b: int, dw: int, iw: int) -> dict:
+    """Each lane's walk as K8's windowed mode takes it, replayed on the
+    host: its steps (one code read each, so their sum is the tb bytes the
+    decode reads: K8's bound counts what this run's data needs) and the
+    windows (dw x iw, anchored at the walk's cell whenever it leaves the
+    last) it loads."""
     tb, m, dat = (x.cpu().numpy() for x in (tb, m, dat))
-    reads = 0
+    steps, windows = [], []
     for lane in range(b):
         bi = int(np.argmax(m[:q, lane]))
-        if not m[bi, lane] > 0.0:
-            continue
-        i, j, state = bi, int(dat[bi, lane]) - bi, 0
-        while i >= 0 and j >= 0:
-            c = int(tb[i + j, i, lane])
-            reads += 1
-            if state == 0 and c & 3 == 0:
-                break
-            if state == 0 and c & 3 == 1:
-                i, j = i - 1, j - 1
-            elif state == 1 or (state == 0 and c & 3 == 2):
-                state, j = (1 if c & 4 else 0), j - 1
-            else:
-                state, i = (2 if c & 8 else 0), i - 1
-    return reads
+        n = w = 0
+        if m[bi, lane] > 0.0:
+            i, j, state, wd, wi = bi, int(dat[bi, lane]) - bi, 0, -1, -1
+            while i >= 0 and j >= 0:
+                if not (wd - dw < i + j <= wd and wi - iw < i <= wi):
+                    wd, wi, w = i + j, i, w + 1
+                c = int(tb[i + j, i, lane])
+                n += 1
+                if state == 0 and c & 3 == 0:
+                    break
+                if state == 0 and c & 3 == 1:
+                    i, j = i - 1, j - 1
+                elif state == 1 or (state == 0 and c & 3 == 2):
+                    state, j = (1 if c & 4 else 0), j - 1
+                else:
+                    state, i = (2 if c & 8 else 0), i - 1
+        steps.append(n)
+        windows.append(w)
+    return {"steps": steps, "windows": windows}
 
 
 def run_cli(main, argv, *args, errors=None):
@@ -642,23 +688,30 @@ def check_profile_kernels(dev, qfn, lib_dir, homologs, cli):
 
     alpha = float(np.float32(params.alpha))
     shift = float(-np.float32(params.zero_shift))
-    for t2 in dict.fromkeys((near, longest)):
-        b = library.buckets[t2]
-        args = (qt["aa"], qt["zsse"], qt["conf"], b["aa"], b["zsse"],
-                b["conf"], alpha)
-        raw = hd.hmap_sim(*args)
-        want = hd.hmap_sim_plain(*args)
-        torch.cuda.synchronize()
-        assert same(raw, want), f"K5 != plain at t2={t2}"
-        err["k5"] = max(err["k5"], max_abs(raw, want))
-    log(f"K5 equals plain on the buckets t2={near} and t2={longest}")
+    # K5 as the main path launches it: once over every bucket; the plain
+    # version (per bucket) timed on its one run
+    q3 = (qt["aa"], qt["zsse"], qt["conf"])
+    stacks = [(b["aa"], b["zsse"], b["conf"])
+              for b in library.buckets.values()]
+    raws = hd.hmap_sim_ragged(*q3, stacks, alpha)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = hd.hmap_sim_ragged_plain(*q3, stacks, alpha)
+    stop.record()
+    torch.cuda.synchronize()
+    k5_plain_ms = start.elapsed_time(stop)
+    for g, w in zip(raws, want):
+        assert same_bits(g, w), f"K5 != plain at {tuple(g.shape)}"
+        err["k5"] = max(err["k5"], max_abs(g, w))
+    del want
+    log(f"K5 equals plain as float32 bits on the whole library in one "
+        f"launch ({sum(S.shape[0] for S in raws)} pairs, {len(raws)} "
+        f"buckets)")
 
     # K6 as the main path launches it: once over every bucket's K5 output;
     # the plain version (every chain in one loop) timed on its one run
-    raws = [hd.hmap_sim(qt["aa"], qt["zsse"], qt["conf"], b["aa"],
-                        b["zsse"], b["conf"], alpha)
-            for b in library.buckets.values()]
-
     def k6_vs_plain(Ss, tag):
         for normalize in (True, False):
             got = hd.hmap_znorm_ragged(Ss, shift, normalize=normalize)
@@ -740,11 +793,33 @@ def check_profile_kernels(dev, qfn, lib_dir, homologs, cli):
         "64x258x258_table_ms": cuda_ms(lambda: ds.dp_general(*big_tabs), 3),
         "64x258x258_plain_ms": cuda_ms(
             lambda: ds.dp_general_plain(*big_tabs), 1)})
-    args = (qt["aa"], qt["zsse"], qt["conf"], b["aa"], b["zsse"], b["conf"],
-            alpha)
+    # K5: the whole library in one launch, through the wrapper and as the
+    # launch alone (its descriptors on the card, made once); the full
+    # bucket alone; beside it torch.bmm of the profile dot products at the
+    # largest bucket, a yardstick and not the same function (another sum
+    # order, and no SSE term, expf or borders), TF32 off
+    k5_ms = cuda_ms(lambda: hd.hmap_sim_ragged(*q3, stacks, alpha), 5)
+    k5_times = {"screen_launch_ms": k5_launch_ms(q3, stacks, alpha)}
+    args = (*q3, b["aa"], b["zsse"], b["conf"], alpha)
     raw = hd.hmap_sim(*args)
-    k5_ms = cuda_ms(lambda: hd.hmap_sim(*args), 5)
-    k5_plain_ms = cuda_ms(lambda: hd.hmap_sim_plain(*args), 1)
+    k5_times.update({
+        "bucket_ms": cuda_ms(lambda: hd.hmap_sim(*args), 5),
+        "bucket_plain_ms": cuda_ms(lambda: hd.hmap_sim_plain(*args), 1)})
+    wide = max(library.buckets.values(), key=lambda x: x["aa"].shape[0]
+               * x["aa"].shape[1])
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        qa = qt["aa"].expand(wide["aa"].shape[0], -1, -1)
+        ta = wide["aa"].transpose(1, 2)
+        k5_times["yardstick_bmm_ms"] = cuda_ms(lambda: torch.bmm(qa, ta), 5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    k5_times["yardstick"] = (
+        f"torch.bmm (n, q2, 20) x (n, 20, t2) at the largest bucket "
+        f"{wide['aa'].shape[0]}x{query.size()}x{wide['aa'].shape[1]}, "
+        f"TF32 off: not the same function (another sum order; no SSE term, "
+        f"expf, nan_to_num or borders)")
     # K6: the whole library in one launch and the timed bucket alone,
     # through the wrapper and as the launch alone (its descriptors built
     # once; normalize=False runs the apply pass alone)
@@ -768,7 +843,12 @@ def check_profile_kernels(dev, qfn, lib_dir, homologs, cli):
         f"{times['64x258x258_ragged_ms']:.3f} ms, table form "
         f"{times['64x258x258_table_ms']:.3f} ms, plain "
         f"{times['64x258x258_plain_ms']:.3f} ms")
-    log(f"K5 {k5_ms:.3f} ms vs plain {k5_plain_ms:.3f} ms on {shape}")
+    log(f"K5 whole screen ({n_pairs} pairs, one launch): {k5_ms:.3f} ms "
+        f"through the wrapper, {k5_times['screen_launch_ms']:.3f} ms the "
+        f"launch alone, plain {k5_plain_ms:.3f} ms; on {shape}: "
+        f"{k5_times['bucket_ms']:.3f} ms, plain "
+        f"{k5_times['bucket_plain_ms']:.3f} ms; yardstick "
+        f"{k5_times['yardstick_bmm_ms']:.3f} ms ({k5_times['yardstick']})")
     log(f"K6 whole screen ({n_pairs} pairs, one launch): {k6_ms:.3f} ms "
         f"through the wrapper, {k6_times['screen_launch_ms']:.3f} ms the "
         f"launch alone (its apply pass alone "
@@ -783,7 +863,23 @@ def check_profile_kernels(dev, qfn, lib_dir, homologs, cli):
              "screen_shapes": screen_shapes,
              "screen": f"{n_pairs} pairs in {len(buckets)} buckets, "
                        f"q2={query.size()}",
-             "k3_times": times, "k6_times": k6_times})
+             "k3_times": times, "k5_times": k5_times, "k6_times": k6_times})
+
+
+def k5_launch_ms(q3, stacks, alpha: float) -> float:
+    """K5's launch alone over ``stacks`` (its plan, the descriptors on the
+    card, made once by the wrapper's own steps), mean of 5; its output must
+    equal the wrapper's as float32 bits."""
+    import torch
+    from alignment_algos_tpu_torch.ops import hmap_device as hd
+
+    plan = hd._sim_plan(*q3, stacks)
+    ms = cuda_ms(lambda: hd._sim_launch(plan, alpha), 5)
+    want = hd.hmap_sim_ragged(*q3, stacks, alpha)
+    torch.cuda.synchronize()
+    assert all(same_bits(o, w) for o, w in zip(plan.outs, want)), \
+        "K5 launch alone != the wrapper's"
+    return ms
 
 
 def k6_launch_ms(Ss, shift: float, normalize: bool) -> float:
@@ -813,7 +909,7 @@ def run_profile_screens(cli, d, qfn, lib_dir, files, homologs, card):
     def k3_launches():
         return ds.dp_general_ragged.launches + ds.dp_general.launches
 
-    counters = (ds.dp_general_ragged, ds.dp_general, hd.hmap_sim,
+    counters = (ds.dp_general_ragged, ds.dp_general, hd.hmap_sim_ragged,
                 hd.hmap_znorm_ragged)
     query, templates, _ = cli.read_profiles(qfn, lib_dir)
     q2 = query.size()
@@ -823,17 +919,17 @@ def run_profile_screens(cli, d, qfn, lib_dir, files, homologs, card):
         fn.launches = 0
     out, wall = run_cli(cli.main, [qfn, lib_dir, "--profiles", "1",
                                    "--top_k", str(TOP_K)])
-    launches = {"k3": k3_launches(), "k5": hd.hmap_sim.launches,
+    launches = {"k3": k3_launches(), "k5": hd.hmap_sim_ragged.launches,
                 "k6": hd.hmap_znorm_ragged.launches}
-    # one K3 launch per screen, the ragged one; K5 once per bucket, K6 once
+    # one launch each per screen: K3 (the ragged one), K5, K6
     assert (ds.dp_general_ragged.launches, ds.dp_general.launches) == (1, 0), \
         launches
-    assert launches["k5"] == n_buckets and launches["k6"] == 1, launches
+    assert launches["k5"] == 1 and launches["k6"] == 1, launches
     rows = rows_of(out)
     assert len(rows) == TOP_K, out
     assert {r[3] for r in rows[:N_HOMOLOGS]} == set(homologs), rows
-    log(f"--profiles 1: {len(templates)} templates, "
-        f"{len({t.size() for t in templates})} length buckets, wall "
+    log(f"--profiles 1: {len(templates)} templates, {n_buckets} length "
+        f"buckets, wall "
         f"{wall:.3f} s, {evals / wall:.4g} candidate evaluations/s "
         f"({evals} evaluations; K3 +{launches['k3']}, K5 +{launches['k5']}, "
         f"K6 +{launches['k6']} launches) on {card}")
@@ -896,7 +992,7 @@ def run_big_template_screen(cli, d, dev, card):
             f.write(_profile_text(f"b{n}", _residues(rng, length)))
     cap = ds.vec_max_t2(dev)
     assert max(BIG_TEMPLATES) + 2 > cap >= 2 + sorted(BIG_TEMPLATES)[-2], cap
-    counters = (ds.dp_general_ragged, ds.dp_general, hd.hmap_sim,
+    counters = (ds.dp_general_ragged, ds.dp_general, hd.hmap_sim_ragged,
                 hd.hmap_znorm_ragged, de.dp_forward_tb)
     for fn in counters:
         fn.launches = 0
@@ -904,8 +1000,8 @@ def run_big_template_screen(cli, d, dev, card):
     out, wall = run_cli(cli.main, [qfn, lib, "--profiles", "1", "--top_k",
                                    str(k)])
     got = tuple(fn.launches for fn in counters)
-    # K3 once, K5 per bucket, K6 once, K7 for the long bucket
-    assert got == (1, 0, len(set(BIG_TEMPLATES)), 1, 1), got
+    # K3, K5 and K6 once, K7 for the long bucket
+    assert got == (1, 0, 1, 1, 1), got
     query, templates, _ = cli.read_profiles(qfn, lib)
     params = hd.HMAPaliParams()
     ev = hd.HMAPaliEval(params)
@@ -1246,7 +1342,8 @@ def main() -> int:
         inp = cli.read_inputs(qfa, lfa, blosum)
         q, t, table, pad = inp.q_codes, inp.t_codes, inp.table, inp.pad_code
         assert t.shape == (N_LIB, T_MAX), t.shape
-        timing, k8_reads = check_kernels(sw, q, t, table, pad, dev)
+        timing, k8_reads, k8_extra = check_kernels(sw, q, t, table, pad,
+                                                   dev)
 
         # host set-up outside the timed runs: the alignment-distance code
         # builds its native library at first use
@@ -1341,10 +1438,16 @@ def main() -> int:
                      + 8 * Q_LEN * TOP_K, 16 * cells)
     # K3: the main path's launch, the whole library
     k3_bound = bound(*k3_work(prof_extra["screen_shapes"]))
-    n, q2, t2 = prof_extra["dims"]
-    inner = n * (q2 - 2) * (t2 - 2)
+    # K5: the main path's launch, the whole library: the query's and each
+    # template's rows read once, S written once; per interior cell 23
+    # multiply-adds, the division, three multiplies and the float64 expf
+    shapes = prof_extra["screen_shapes"]
     ka, ks = 20, 3                           # profile and SSE widths
-    k5_bound = bound(4 * ((q2 + n * t2) * (ka + ks + 1) + n * q2 * t2),
+    inner = sum(n * (q2 - 2) * (t2 - 2) for n, q2, t2 in shapes)
+    q2 = shapes[0][1]
+    k5_bound = bound(4 * (q2 * (ka + ks + 1)
+                          + sum(n * t2 * (ka + ks + 1) + n * q2 * t2
+                                for n, _, t2 in shapes)),
                      (2 * ka + 2 * ks + 5) * inner, 10 * inner)
     # K6: the main path's launch, the whole library: each pair's region
     # read once (nothing else of S is needed), the output written once; a
@@ -1352,7 +1455,6 @@ def main() -> int:
     # divide and an add (apply).  Its chain floor, worked out from the
     # shapes (the longest region's adds at an assumed 4 cycles each), is
     # logged and not a field of the kernels line
-    shapes = prof_extra["screen_shapes"]
     inner6 = sum(n * (q2 - 2) * (t2 - 2) for n, q2, t2 in shapes)
     k6_bound = bound(4 * (inner6 + sum(n * q2 * t2 for n, q2, t2 in shapes)),
                      6 * inner6)
@@ -1406,7 +1508,8 @@ def main() -> int:
          "bucket": prof_extra["bucket"], **prof_extra["k3_times"]},
         {"name": "hmap_sim_kernel (K5)", "route": "cuda", "source": K56_SRC,
          "replaces": "alignment_algos_tpu/ops/hmap_device.py:137",
-         **row("k5"), "shape": prof_extra["bucket"]},
+         **row("k5"), "shape": prof_extra["screen"],
+         "bucket": prof_extra["bucket"], **prof_extra["k5_times"]},
         {"name": "hmap_znorm_kernel (K6)", "route": "cuda", "source": K56_SRC,
          "replaces": "alignment_algos_tpu/ops/hmap_device.py:172",
          **row("k6"), "shape": prof_extra["screen"],
@@ -1419,7 +1522,7 @@ def main() -> int:
         {"name": "sw_decode_kernel (K8)", "route": "cuda", "source": K8_SRC,
          "replaces": "alignment_algos_tpu/ops/swaffine.py:387",
          **row("k8"), "shape": f"{Q_LEN}x{T_MAX}x{TOP_K}",
-         "walk_reads": k8_reads},
+         "walk_reads": k8_reads, **k8_extra},
     ]
     log(json.dumps({"profiles_run": prof_run}))
     log(json.dumps({"dp_runs": dp_runs, "nalign_build_split_s": {

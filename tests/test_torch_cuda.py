@@ -446,7 +446,7 @@ def test_new_wrappers_count_launches_and_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         dp_scores.dp_general(tabs[0].transpose(1, 2), *tabs[1:])
     S = torch.rand((2, 9, 8), device=cuda)
-    n5 = hmap_device.hmap_sim.launches
+    n5 = hmap_device.hmap_sim_ragged.launches
     n6 = hmap_device.hmap_znorm_ragged.launches
     hmap_device.hmap_znorm(S, -0.12)
     hmap_device.hmap_znorm(S, -0.12, normalize=False)
@@ -460,12 +460,111 @@ def test_new_wrappers_count_launches_and_reject_bad_input(cuda):
                                                          device=cuda)
     cq, ct = torch.rand(9, device=cuda), torch.rand((2, 8), device=cuda)
     hmap_device.hmap_sim(q, zq, cq, t, zt, ct, 0.5)
-    assert hmap_device.hmap_sim.launches == n5 + 1
+    assert hmap_device.hmap_sim_ragged.launches == n5 + 1
     with pytest.raises(ValueError):
         hmap_device.hmap_sim(q, zq, cq, t, zt, ct.cpu(), 0.5)
     with pytest.raises(ValueError):
         hmap_device.hmap_sim(q, zq, cq, t[:, :, :19].contiguous(), zt, ct,
                              0.5)
+    with pytest.raises(ValueError):
+        hmap_device.hmap_sim_ragged(q, zq, cq, [], 0.5)
+    assert hmap_device.hmap_sim_ragged.launches == n5 + 1
+
+
+# K5's buckets (n, t2): t2 = 3 (an empty interior), one off a tile's 64
+# columns either side, 32 (one column a thread), one template and several
+K5_BUCKETS = [(2, 3), (1, 63), (3, 65), (1, 64), (2, 127), (1, 129),
+              (4, 32), (1, 33), (5, 258), (1, 386)]
+
+
+def _k5_inputs(rng, q2, buckets, dev, special=True):
+    """A random query and template stacks on ``dev``; with ``special``,
+    NaN and inf profile and SSE entries and zero confidences."""
+    def t(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+    q = [t(q2, 20), t(q2, 3), rng.uniform(0.0, 1.0, q2).astype(np.float32)]
+    stacks = [[t(n, t2, 20), t(n, t2, 3),
+               rng.uniform(0.0, 1.0, (n, t2)).astype(np.float32)]
+              for n, t2 in buckets]
+    if special:
+        q[0][1, 4] = np.nan
+        q[1][q2 // 2, 1] = np.inf
+        q[2][min(2, q2 - 1)] = 0.0
+        stacks[1][0][0, 5, 7] = np.inf
+        stacks[2][1][2, 9, 0] = -np.inf
+        stacks[2][2][1, :] = 0.0
+        stacks[-1][0][0, 100, 3] = np.nan
+    return ([torch.from_numpy(x).to(dev) for x in q],
+            [tuple(torch.from_numpy(x).to(dev) for x in st)
+             for st in stacks])
+
+
+def _k5_vs_plain(q, stacks, alpha):
+    n5 = hmap_device.hmap_sim_ragged.launches
+    got = hmap_device.hmap_sim_ragged(*q, stacks, alpha)
+    assert hmap_device.hmap_sim_ragged.launches == n5 + 1
+    want = hmap_device.hmap_sim_ragged_plain(*q, stacks, alpha)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == len(stacks)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.is_contiguous(), i
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), i
+    return got
+
+
+@pytest.mark.parametrize("q2", [3, 33, 31, 258])
+def test_k5_ragged_equals_plain_on_mixed_buckets(cuda, q2):
+    """One K5 launch over ten buckets (t2 = 3, off the 64-column tile by
+    one either side, one-template buckets, NaN/inf entries, zero
+    confidences) equals the plain version per bucket as float32 bits; the
+    outputs are views into one allocation; each bucket alone equals its
+    part of the ragged launch."""
+    rng = np.random.default_rng(40 + q2)
+    q, stacks = _k5_inputs(rng, q2, K5_BUCKETS, cuda)
+    got = _k5_vs_plain(q, stacks, 0.66)
+    base = got[0].untyped_storage().data_ptr()
+    assert all(g.untyped_storage().data_ptr() == base for g in got)
+    for st, g in zip(stacks, got):
+        alone = hmap_device.hmap_sim(*q, *st, 0.66)
+        assert torch.equal(alone.view(torch.int32), g.view(torch.int32))
+
+
+@pytest.fixture(scope="module")
+def screen_library(cuda, tmp_path_factory):
+    """chip_smoke.py's seeded 1024-template ``--profiles 1`` library on the
+    card: (query, templates, params, DeviceLibrary, query tensors)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+    from alignment_algos_tpu_torch.cli import screen as cli
+    d = str(tmp_path_factory.mktemp("screen"))
+    qfn, lib_dir, _, _ = cs.make_profile_library(d)
+    query, templates, _ = cli.read_profiles(qfn, lib_dir)
+    params = hmap_device.HMAPaliParams()
+    lib = hmap_device.DeviceLibrary(templates, hmap_device.HMAPaliEval(
+        params), device=cuda)
+    return query, templates, params, lib, hmap_device.query_tensors(query,
+                                                                    cuda)
+
+
+def test_k5_ragged_equals_plain_on_the_1024_template_screen(screen_library):
+    _, _, params, lib, qt = screen_library
+    stacks = [(b["aa"], b["zsse"], b["conf"]) for b in lib.buckets.values()]
+    assert len(stacks) > 200
+    _k5_vs_plain([qt["aa"], qt["zsse"], qt["conf"]], stacks,
+                 float(np.float32(params.alpha)))
+
+
+def test_profile_screen_launches_k5_k6_k3_once(screen_library):
+    query, templates, params, lib, _ = screen_library
+    counters = (hmap_device.hmap_sim_ragged, hmap_device.hmap_znorm_ragged,
+                dp_scores.dp_general_ragged, dp_scores.dp_general)
+    before = [fn.launches for fn in counters]
+    scores, _ = hmap_device.screen_hmap_device(query, templates, params,
+                                               library=lib, device=lib.device)
+    assert [fn.launches - n for fn, n in zip(counters, before)] == \
+        [1, 1, 1, 0]
+    assert np.isfinite(scores).all() and len(scores) == len(templates)
 
 
 def _znorm_stacks(rng, shapes):
@@ -787,12 +886,23 @@ def _k8_inputs(q, t, b, seed):
     return qc, tc, table
 
 
-def _k8_vs_plain_and_numpy(tb, m, dat, q, t, b):
-    got = swaffine.sw_decode(tb, m, dat, q=q, t=t, b=b)
+def _k8_vs_plain_and_numpy(tb, m, dat, q, t, b, mode=None, numpy=True):
+    plan = swaffine.k8_plan(q, t, b, *tb.shape, mode=mode)
+    n = swaffine.sw_decode.launches
+    got = swaffine.sw_decode(tb, m, dat, q=q, t=t, b=b, plan=plan)
     torch.cuda.synchronize()
+    assert swaffine.sw_decode.launches == n + 1
     want = swaffine.decode_tb_plain(tb, m, dat, q=q, t=t, b=b)
     for g, w in zip(got, want):
-        assert g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
+    # the score is the value at the first maximum's row, bits and all
+    mq = m[:q, :b].cpu().numpy()
+    first = mq[np.argmax(mq, axis=0), np.arange(b)]
+    np.testing.assert_array_equal(got[0].cpu().numpy().view(np.int32),
+                                  first.view(np.int32))
+    if not numpy:
+        return got
     scores, paths = swaffine.decode_local_tracebacks(
         tb.cpu().numpy(), m.cpu().numpy(), dat.cpu().numpy(), q, t, nb=b)
     np.testing.assert_array_equal(got[0].cpu().numpy(), scores)
@@ -801,27 +911,95 @@ def _k8_vs_plain_and_numpy(tb, m, dat, q, t, b):
     return got
 
 
-# Q = 1, 511, 513 (K2's query chunks) and 1031, odd T, B = 1, 10, 33, 5120
+# Q = 1, 511, 513 (K2's query chunks) and 1031, odd T, B = 1, 10, 33, 5120;
+# the FASTA screen's 512 x 512 x 10 and its --top_k 1024
 K8_SHAPES = [(1, 1, 1), (1, 9, 10), (64, 515, 1), (33, 47, 10),
              (512, 512, 10), (511, 45, 33), (513, 39, 33), (1031, 77, 33),
-             (40, 37, 5120)]
+             (40, 37, 5120), (512, 512, 1024)]
+K8_MODES = ["windowed", "lane"]
 
 
+@pytest.mark.parametrize("mode", K8_MODES)
 @pytest.mark.parametrize("gi,ge", GAPS)
 @pytest.mark.parametrize("q,t,b", K8_SHAPES)
-def test_k8_equals_plain_and_numpy(cuda, q, t, b, gi, ge):
+def test_k8_equals_plain_and_numpy(cuda, q, t, b, gi, ge, mode):
     qc, tc, table = _k8_inputs(q, t, b, q * 3 + t * 5 + b)
     tb, m, dat = swaffine.sw_affine_tb(
         *swaffine.to_device(qc, tc, table, gi, ge, cuda))
-    scores, rec_i, _ = _k8_vs_plain_and_numpy(tb, m, dat, q, t, b)
+    scores, rec_i, _ = _k8_vs_plain_and_numpy(tb, m, dat, q, t, b, mode)
     if b >= 3:                      # the wall and score-0 lanes stay dead
         assert scores[1].item() == scores[2].item() == 0.0
         assert (rec_i[:, 1:3] == -1).all()
     if b > 1:                       # m wider than the lanes decoded
-        _k8_vs_plain_and_numpy(tb, m, dat, q, t, b - 1)
+        _k8_vs_plain_and_numpy(tb, m, dat, q, t, b - 1, mode)
 
 
-def test_k8_offsets_past_2_31(cuda):
+def _k8_synthetic(q, t, b, kind, seed, dev):
+    """Codes that steer every walk: ``diag`` all matches (d falls 2 a step,
+    i 1: a 64 x 32 window is left through both edges at once), ``e`` an E
+    gap never closed (d falls 1, i stays: the d-edge), ``f`` an F gap (d
+    and i fall 1: the i-edge), ``mixed`` random codes with 0.2% stops,
+    ``clamp`` those with every start past tb's last anti-diagonal (its
+    reads clamp until the walk comes inside), ``pad`` those with tb, m and
+    dat 5 rows and 3 lanes wider than q and b.  m's first maximum is
+    planted at a random row and dat puts the walk's start anywhere in the
+    row; lane 0 ties -0.0 and +0.0 (score -0.0, a dead lane), lane 1 has a
+    NaN (it wins, the lane is dead), lane 2 ties its maximum at two rows
+    (the lower starts the walk)."""
+    rng = np.random.default_rng(seed)
+    nd = q + t - 1
+    rows, lanes_all = (q + 5, b + 3) if kind == "pad" else (q, b)
+    shape = (nd, rows, lanes_all)
+    if kind == "diag":
+        tb = np.full(shape, 1, np.int8)
+    elif kind == "e":
+        tb = np.full(shape, 2 | 4, np.int8)
+    elif kind == "f":
+        tb = np.full(shape, 3 | 8, np.int8)
+    else:
+        tb = (rng.choice(np.array([1, 1, 1, 2, 3], np.int8), shape)
+              | (rng.random(shape) < 0.6).astype(np.int8) * 4
+              | (rng.random(shape) < 0.6).astype(np.int8) * 8)
+        tb[rng.random(shape) < 0.002] = 0
+    lanes = np.arange(b)
+    m = rng.uniform(0.5, 9.0, (rows, lanes_all)).astype(np.float32)
+    bi = rng.integers(0, q, b)
+    m[bi, lanes] = 20.0
+    dat = rng.integers(-5, nd + 5, (rows, lanes_all)).astype(np.int32)
+    dat[bi, lanes] = bi + rng.integers(0, t, b)
+    if kind == "clamp":
+        dat[bi, lanes] = bi + nd + rng.integers(0, 40, b)
+    if b >= 3:
+        m[:, 0] = 0.0
+        m[: q // 2 + 1, 0] = -0.0
+        m[q // 2, 1] = np.nan
+        if q >= 2:
+            m[[0, q - 1], 2] = 30.0
+            dat[0, 2] = rng.integers(0, t)
+    return (torch.from_numpy(tb).to(dev), torch.from_numpy(m).to(dev),
+            torch.from_numpy(dat).to(dev))
+
+
+@pytest.mark.parametrize("mode", K8_MODES)
+@pytest.mark.parametrize("kind", ["diag", "e", "f", "mixed", "clamp",
+                                  "pad"])
+@pytest.mark.parametrize("q,t,b", [(512, 512, 10), (200, 300, 40),
+                                   (7, 90, 3), (90, 7, 3)])
+def test_k8_window_edges_equal_plain_and_numpy(cuda, q, t, b, kind, mode):
+    tb, m, dat = _k8_synthetic(q, t, b, kind, q + t + b, cuda)
+    # the numpy decode indexes tb unclamped: a clamped start is the plain
+    # version's (and the JAX loop's) alone
+    scores, rec_i, rec_j = _k8_vs_plain_and_numpy(
+        tb, m, dat, q, t, b, mode, numpy=kind != "clamp")
+    assert np.signbit(scores[0].item()) and scores[0].item() == 0.0
+    assert torch.isnan(scores[1])
+    assert (rec_i[:, :2] == -1).all()
+    if kind == "diag":              # one match a step from the start
+        assert (rec_i[0, 3:] >= 0).all()
+
+
+@pytest.mark.parametrize("mode", K8_MODES)
+def test_k8_offsets_past_2_31(cuda, mode):
     """512 x 512 x 4200: tb holds 2.2e9 bytes, and the walks that start
     near its last anti-diagonal read offsets past 2^31."""
     q, t, b = 512, 512, 4200
@@ -829,13 +1007,14 @@ def test_k8_offsets_past_2_31(cuda):
     tb, m, dat = swaffine.sw_affine_tb(
         *swaffine.to_device(qc, tc, table, 4.73, 0.34, cuda))
     assert tb.numel() > 2 ** 31
-    _, rec_i, rec_j = _k8_vs_plain_and_numpy(tb, m, dat, q, t, b)
+    _, rec_i, rec_j = _k8_vs_plain_and_numpy(tb, m, dat, q, t, b, mode)
     lanes = torch.arange(b, device=cuda, dtype=torch.int64)
     off = (((rec_i + rec_j).long() * q + rec_i.long()) * b + lanes)
     assert off[rec_i >= 0].max().item() >= 2 ** 31
 
 
 def test_k8_counts_launches_and_rejects_bad_input(cuda):
+    from alignment_algos_tpu_torch.ops import _build
     qc, tc, table = _k8_inputs(9, 11, 8, 0)
     tb, m, dat = swaffine.sw_affine_tb(
         *swaffine.to_device(qc, tc, table, 11.0, 1.0, cuda))
@@ -852,4 +1031,18 @@ def test_k8_counts_launches_and_rejects_bad_input(cuda):
         swaffine.sw_decode(tb[:, :, :4].contiguous(), m, dat, **kw)
     with pytest.raises(ValueError):
         swaffine.sw_decode(tb, m, dat, **dict(kw, q=10))
+    with pytest.raises(ValueError):                  # another shape's plan
+        swaffine.sw_decode(tb, m, dat, **kw, plan=swaffine.K8Plan(
+            "windowed", *swaffine.K8_WINDOW))
     assert swaffine.sw_decode.launches == n + 2
+    # the launcher itself refuses a plan that does not match the shapes
+    out = torch.empty((3, 8 + 9 * 11 * 2), dtype=torch.int32, device=cuda)
+    lib = _build.load().lib
+    stream = torch.cuda.current_stream().cuda_stream
+    for mode, dw, iw in ((1, 64, 9), (1, tb.shape[0], 8), (0, 1, 0),
+                         (2, 0, 0)):
+        err = lib.sw_decode_launch(
+            tb.data_ptr(), m.data_ptr(), dat.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), 9, 11, 8, *tb.shape,
+            m.shape[1], mode, dw, iw, stream)
+        assert err != 0, (mode, dw, iw)

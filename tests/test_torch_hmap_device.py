@@ -295,7 +295,7 @@ def test_k5_k6_wrappers_route_cpu_tensors_to_the_plain_versions():
           for k, v in hmap_device.pack_sequence(seqs[0]).items()}
     args = (qp["aa"], qp["zsse"], qp["conf"], b["aa"], b["zsse"], b["conf"],
             0.5)
-    n5 = hmap_device.hmap_sim.launches
+    n5 = hmap_device.hmap_sim_ragged.launches
     n6 = hmap_device.hmap_znorm_ragged.launches
     raw = hmap_device.hmap_sim(*args)
     assert torch.equal(raw, hmap_device.hmap_sim_plain(*args))
@@ -303,13 +303,157 @@ def test_k5_k6_wrappers_route_cpu_tensors_to_the_plain_versions():
         assert torch.equal(
             hmap_device.hmap_znorm(raw, -0.12, normalize=normalize),
             hmap_device.hmap_znorm_plain(raw, -0.12, normalize=normalize))
-    assert (hmap_device.hmap_sim.launches,
+    assert (hmap_device.hmap_sim_ragged.launches,
             hmap_device.hmap_znorm_ragged.launches) == (n5, n6)
     with pytest.raises(TypeError):
         hmap_device.hmap_znorm(raw.double(), -0.12)
     with pytest.raises(ValueError):
         hmap_device.hmap_sim(*args[:3], b["aa"][:, :, :5].contiguous(),
                              *args[4:])
+
+
+# ------------------------------------------------- K5 over a whole screen
+
+def _sim_stacks(rng, shapes, ka=20, ks=3):
+    """Random template stacks (t_aa, t_zsse, t_conf) of the given (n, t2)."""
+    return [tuple(torch.from_numpy(rng.standard_normal(sh).astype(
+                      np.float32))
+                  for sh in ((n, t2, ka), (n, t2, ks), (n, t2)))
+            for n, t2 in shapes]
+
+
+def _sim_query(rng, q2, ka=20, ks=3):
+    return tuple(torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+                 for sh in ((q2, ka), (q2, ks), (q2,)))
+
+
+@pytest.mark.parametrize("q2", [3, 37])
+def test_k5_ragged_equals_plain_per_bucket(q2):
+    """K5 over mixed buckets (t2 = 3, around a tile's 64 columns, one
+    template and several, NaN and inf profile entries, zero confidences)
+    equals ``hmap_sim_plain`` of each bucket as float32 bits, on the CPU
+    route, which launches nothing."""
+    rng = np.random.default_rng(17 + q2)
+    q = _sim_query(rng, q2)
+    stacks = _sim_stacks(rng, [(2, 3), (1, 63), (3, 65), (1, 64), (2, 9)])
+    q[0][1, 2] = np.nan
+    q[2][q2 // 2] = 0.0
+    stacks[1][0][0, 2, 5] = np.inf
+    stacks[2][2][1, 4] = 0.0
+    stacks[4][1][0, 3, 1] = -np.inf
+    n5 = hmap_device.hmap_sim_ragged.launches
+    got = hmap_device.hmap_sim_ragged(*q, stacks, 0.75)
+    assert hmap_device.hmap_sim_ragged.launches == n5
+    assert len(got) == len(stacks)
+    for g, st in zip(got, stacks):
+        want = hmap_device.hmap_sim_plain(*q, *st, 0.75)
+        assert g.shape == (st[0].shape[0], q2, st[0].shape[1])
+        assert torch.equal(g.view(torch.int32), want.view(torch.int32))
+        assert torch.isfinite(g).all()
+    assert torch.equal(hmap_device.hmap_sim(*q, *stacks[2], 0.75).view(
+        torch.int32), got[2].view(torch.int32))
+
+
+def _tiles_of(pairs, q2):
+    """Each descriptor's tiles as the kernel maps a block to its cells:
+    {(pair, row0, col0)} from the block index and the pair's first tile,
+    each block every row in passes of K5_TILE[0]."""
+    tq, tt = hmap_device.K5_TILE
+    cells = []
+    total = 0
+    for p, (t2, t0) in enumerate(zip(pairs["t2"].astype(np.int64),
+                                     pairs["tile0"].astype(np.int64))):
+        n = -(-t2 // tt)
+        assert t0 == total
+        total += n
+        for blk in range(t0, t0 + n):
+            for i0 in range(0, q2, tq):
+                cells.append((p, i0, (blk - t0) * tt))
+    return cells, total
+
+
+def test_k5_descriptors_cover_every_cell_once_in_k6_order():
+    """K5's descriptors (built on the CPU, as the card's wrapper builds
+    them): every pair once with its template rows' and its S's addresses,
+    in the order of K6's descriptors for the same outputs, first tiles
+    ascending from 0, and tiles that cover each pair's q2 x t2 cells
+    once."""
+    rng = np.random.default_rng(18)
+    q2 = 37
+    shapes = [(2, 3), (1, 63), (3, 65), (1, 64), (2, 130), (1, 9)]
+    stacks = _sim_stacks(rng, shapes)
+    outs = [torch.empty((n, q2, t2)) for n, t2 in shapes]
+    addrs = [(a.data_ptr(), z.data_ptr(), c.data_ptr(), S.data_ptr())
+             for (a, z, c), S in zip(stacks, outs)]
+    pairs, tiles = hmap_device._sim_descriptors(q2, 20, 3, shapes, addrs)
+    assert pairs.dtype == hmap_device.SIM_PAIR_DTYPE
+    assert hmap_device.SIM_PAIR_DTYPE.itemsize == 40
+    want = {(a.data_ptr() + 80 * p * t2, z.data_ptr() + 12 * p * t2,
+             c.data_ptr() + 4 * p * t2, S.data_ptr() + 4 * p * q2 * t2, t2)
+            for (a, z, c), S, (n, t2) in zip(stacks, outs, shapes)
+            for p in range(n)}
+    got = {tuple(int(x) for x in row)[:5] for row in pairs}
+    assert got == want and len(pairs) == sum(n for n, _ in shapes)
+    k6, _ = hmap_device._znorm_descriptors(outs, outs, 4096)
+    assert list(pairs["S"]) == list(k6["S"])
+    cells, total = _tiles_of(pairs, q2)
+    assert total == tiles
+    tq, tt = hmap_device.K5_TILE
+    for p, t2 in enumerate(pairs["t2"]):
+        seen = np.zeros((q2, int(t2)), np.int32)
+        for pp, r0, c0 in cells:
+            if pp == p:
+                seen[r0:r0 + tq, c0:c0 + tt] += 1
+        assert (seen == 1).all(), p
+
+
+def test_k5_descriptor_offsets_are_64_bit():
+    """Per-pair offsets past 2^31 bytes (70,000 templates of 400 rows of 20
+    floats; 5,000 similarity matrices of 300 x 400) and base addresses past
+    2^32: each field is its base plus p times its pair's bytes, exactly."""
+    q2 = 300
+    shapes = [(70000, 400), (5000, 400)]
+    base = [(2 ** 40, 2 ** 41, 2 ** 42, 2 ** 43),
+            (2 ** 44, 2 ** 45, 2 ** 46, 2 ** 47)]
+    pairs, _ = hmap_device._sim_descriptors(q2, 20, 3, shapes, base)
+    for field, col, width in (("t_aa", 0, 20), ("t_zsse", 1, 3),
+                              ("t_conf", 2, 1), ("S", 3, q2)):
+        got = sorted(int(x) for x in pairs[field])
+        want = sorted(b[col] + p * 4 * width * 400
+                      for (n, _), b in zip(shapes, base) for p in range(n))
+        assert got == want, field
+    assert int(pairs["t_aa"].max()) - 2 ** 40 > 2 ** 31
+    assert int(pairs["S"].max()) - 2 ** 47 > 2 ** 31
+
+
+def test_k5_rejects_bad_input():
+    rng = np.random.default_rng(19)
+    q = _sim_query(rng, 9)
+    st = _sim_stacks(rng, [(2, 8)])[0]
+    with pytest.raises(ValueError):
+        hmap_device.hmap_sim_ragged(*q, [], 0.5)
+    with pytest.raises(TypeError):
+        hmap_device.hmap_sim_ragged(*q, [(st[0].double(), *st[1:])], 0.5)
+    with pytest.raises(ValueError):
+        hmap_device.hmap_sim_ragged(*q, [(st[0][:, :, :19].contiguous(),
+                                          *st[1:])], 0.5)
+    with pytest.raises(ValueError):
+        hmap_device.hmap_sim_ragged(*q, [(st[0].transpose(0, 1), *st[1:])],
+                                    0.5)
+    with pytest.raises(ValueError):                       # t2 < 3
+        hmap_device.hmap_sim_ragged(*q, [tuple(
+            x[:, :2].contiguous() for x in st)], 0.5)
+    with pytest.raises(ValueError):                       # q2 x t2 >= 2^31
+        meta = torch.device("meta")
+        hmap_device.hmap_sim_ragged(
+            torch.empty((50000, 20), device=meta),
+            torch.empty((50000, 3), device=meta),
+            torch.empty((50000,), device=meta),
+            [(torch.empty((1, 50000, 20), device=meta),
+              torch.empty((1, 50000, 3), device=meta),
+              torch.empty((1, 50000), device=meta))], 0.5)
+    with pytest.raises(ValueError):                       # no kernel there
+        hmap_device.hmap_sim(*(x.to("meta") for x in (*q, *st)), 0.5)
 
 
 # ------------------------------------------------- K6 over a whole screen
@@ -328,9 +472,10 @@ def _library_texts(rng, normalize: bool):
 
 @pytest.mark.parametrize("normalize", [True, False])
 def test_znorm_ragged_equals_jax_bucket_by_bucket(normalize):
-    """One K6 call over the length buckets of a library (its plain version
-    here) equals the JAX package's ``build_similarity_device`` of each
-    bucket bit for bit, and the launch count stays where it was."""
+    """One K5 call and then one K6 call over the length buckets of a
+    library (their plain versions here) equal the JAX package's
+    ``build_similarity_device`` of each bucket bit for bit, and the launch
+    counts stay where they were."""
     rng = np.random.default_rng(12 if normalize else 13)
     params = HMAPaliParams()
     params.normalize_mtx = normalize
@@ -342,11 +487,13 @@ def test_znorm_ragged_equals_jax_bucket_by_bucket(normalize):
                                     device=CPU)
     assert len(lib.buckets) >= 3
     qt = hmap_device.query_tensors(mq, CPU)
-    raw = [hmap_device._raw_similarity(qt, b, mparams)
-           for b in lib.buckets.values()]
+    n5 = hmap_device.hmap_sim_ragged.launches
     n6 = hmap_device.hmap_znorm_ragged.launches
+    raw = hmap_device._raw_similarity(qt, list(lib.buckets.values()),
+                                      mparams)
     got = hmap_device.hmap_znorm_ragged(
         raw, float(-np.float32(params.zero_shift)), normalize=normalize)
+    assert hmap_device.hmap_sim_ragged.launches == n5
     assert hmap_device.hmap_znorm_ragged.launches == n6
     for S, b in zip(got, lib.buckets.values()):
         want = _jax_similarity(query, [templates[i] for i in b["idx"]],

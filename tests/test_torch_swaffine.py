@@ -286,3 +286,64 @@ def test_decode_cpu_route_counts_no_launch_and_checks_inputs():
     for bad in (dict(kw, q=10), dict(kw, b=9), dict(kw, t=0)):
         with pytest.raises(ValueError):
             swaffine.sw_decode(tb, m, dat, **bad)
+
+
+# ------------------------------------------------------- K8's launch plan
+
+@pytest.mark.parametrize("b,mode", [(1, "windowed"), (10, "windowed"),
+                                    (512, "windowed"), (513, "lane"),
+                                    (1024, "lane"), (5120, "lane")])
+def test_k8_plan_mode_by_lanes(b, mode):
+    """Windows up to K8_WINDOW_LANES lanes (the screen's top 10 among
+    them), one thread a lane beyond (--top_k 1024 among them); a window is
+    K8_WINDOW at full size."""
+    plan = swaffine.k8_plan(512, 512, b, 1023, 512, b)
+    assert plan.mode == mode
+    if mode == "windowed":
+        assert (plan.dw, plan.iw) == swaffine.K8_WINDOW == (64, 32)
+    else:
+        assert (plan.dw, plan.iw) == (0, 0)
+
+
+def test_k8_plan_clips_the_window_to_the_matrix():
+    """q or t smaller than a window: the window is the matrix's ND x QP
+    where that is smaller (QP past q, padding rows, counts as rows)."""
+    assert swaffine.k8_plan(1, 1, 1, 1, 1, 1) == swaffine.K8Plan(
+        "windowed", 1, 1)
+    assert swaffine.k8_plan(13, 29, 5, 41, 13, 5) == swaffine.K8Plan(
+        "windowed", 41, 13)
+    assert swaffine.k8_plan(21, 17, 8, 48, 32, 128) == swaffine.K8Plan(
+        "windowed", 48, 32)
+    assert swaffine.k8_plan(40, 37, 5, 76, 40, 5, mode="lane") == \
+        swaffine.K8Plan("lane", 0, 0)
+    assert swaffine.k8_plan(40, 37, 5000, 76, 40, 5000,
+                            mode="windowed").mode == "windowed"
+    with pytest.raises(ValueError):
+        swaffine.k8_plan(40, 37, 5, 76, 40, 5, mode="rows")
+
+
+def test_decode_takes_either_plan_and_refuses_a_mismatching_one():
+    """On the CPU route both modes' plans give the plain version's arrays;
+    a plan made for another shape, or not made by k8_plan, raises before
+    anything runs (the card's launcher refuses it too)."""
+    q, t = 12, 30
+    qc, tc, table = _decode_inputs(q, t, 3)
+    b = tc.shape[0]
+    tb, m, dat = swaffine.sw_affine_tb(
+        *swaffine.to_device(qc, tc, table, 4.73, 0.34, CPU))
+    want = swaffine.decode_tb_plain(tb, m, dat, q=q, t=t, b=b)
+    shape = (q, t, b, *tb.shape)
+    for mode in ("windowed", "lane"):
+        plan = swaffine.k8_plan(*shape, mode=mode)
+        got = swaffine.sw_decode(tb, m, dat, q=q, t=t, b=b, plan=plan)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert tb.shape[1] < swaffine.K8_WINDOW[1]
+    n = swaffine.sw_decode.launches
+    for bad in (swaffine.K8Plan("windowed", *swaffine.K8_WINDOW),
+                swaffine.K8Plan("windowed", tb.shape[0], tb.shape[1] - 1),
+                swaffine.K8Plan("lane", 1, 0),
+                swaffine.K8Plan("rows", 0, 0)):
+        with pytest.raises(ValueError):
+            swaffine.sw_decode(tb, m, dat, q=q, t=t, b=b, plan=bad)
+    assert swaffine.sw_decode.launches == n

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K3, the exact general-gap DP, and K6, the z-norm, on the ``--profiles
-1`` screen's inputs on one NVIDIA GPU.
+"""K3, the exact general-gap DP, K5, the raw similarity, and K6, the
+z-norm, on the ``--profiles 1`` screen's inputs on one NVIDIA GPU.
 
     python3 tools/torch_k3_bench.py [--root DIR] [--reps 5]
 
@@ -13,6 +13,11 @@ then prints CUDA-event times (mean of ``--reps`` runs after a warm-up):
   ``screen_hmap_device`` runs it: one ragged launch over the whole library
   where the checkout has ``dp_scores.dp_general_ragged``, else one
   ``dp_general`` launch per bucket on cost tables built beforehand;
+- ``screen_k5_ms``: K5's part of one screen as the checkout runs it: one
+  ``hmap_sim_ragged`` launch over every bucket where the checkout has it,
+  else one ``hmap_sim`` launch per bucket (``k5_launches`` says which);
+  ``screen_k5_device_ms``, the device time of its kernels in one such run
+  (``torch.profiler``: 253 host launches outrun their kernels);
 - ``screen_k6_ms``: K6's part of one screen as the checkout runs it: one
   ``hmap_znorm_ragged`` launch over every bucket's K5 output where the
   checkout has it, else one ``hmap_znorm`` launch per bucket
@@ -155,6 +160,24 @@ def k7_tools(reps: int, dev) -> dict:
     return res
 
 
+def device_ms(fn, name: str) -> float:
+    """Device milliseconds of the kernels whose name holds ``name`` in one
+    run of ``fn`` (``torch.profiler``), after a warm-up run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and name in e.key]
+    if not events:
+        raise RuntimeError(f"the profiler recorded no {name} kernel")
+    return sum(e.self_device_time_total for e in events) / 1e3
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -181,6 +204,7 @@ def main() -> int:
     res = {"root": root, "card": cs.card_line(), "nvcc_s": built.seconds,
            "ptxas": [line.strip() for line in built.log.splitlines()
                      if "dp_general" in line or "znorm" in line
+                     or "hmap_sim" in line
                      or "dp_tb" in line or "registers" in line]}
     if args.oversized or args.k7:
         res.update(oversized(args.oversized, args.reps, dev)
@@ -204,8 +228,23 @@ def main() -> int:
 
     alpha = float(np.float32(params.alpha))
     shift = float(-np.float32(params.zero_shift))
-    raws = [hd.hmap_sim(qt["aa"], qt["zsse"], qt["conf"], b["aa"], b["zsse"],
-                        b["conf"], alpha) for b in library.buckets.values()]
+    q3 = (qt["aa"], qt["zsse"], qt["conf"])
+    stacks = [(b["aa"], b["zsse"], b["conf"])
+              for b in library.buckets.values()]
+    if hasattr(hd, "hmap_sim_ragged"):
+        res["k5_launches"] = 1
+
+        def k5():
+            return hd.hmap_sim_ragged(*q3, stacks, alpha)
+    else:
+        res["k5_launches"] = len(stacks)
+
+        def k5():
+            return [hd.hmap_sim(*q3, *st, alpha) for st in stacks]
+    res["screen_k5_ms"] = cs.cuda_ms(k5, args.reps)
+    res["screen_k5_device_ms"] = [device_ms(k5, "hmap_sim_kernel")
+                                  for _ in range(3)]
+    raws = k5()
     if hasattr(hd, "hmap_znorm_ragged"):
         res["k6_launches"] = 1
         res["screen_k6_ms"] = cs.cuda_ms(

@@ -25,9 +25,9 @@ profile against 1024 template profiles of 128-384 residues.
 
 1. Replays the stages ``--repeats`` times, synchronizing after each:
    profile parsing, the library's host packing and copy to the device,
-   K5 per length bucket (summed over the buckets), K6 once over the whole
-   library (one ragged launch), K3 once over it (one ragged launch, its
-   costs built in the kernel), the score pull and the top-k.
+   K5 once over the whole library (one ragged launch), K6 once over it
+   (one ragged launch), K3 once over it (one ragged launch, its costs
+   built in the kernel), the score pull and the top-k.
 2. Runs the whole CLI once under ``torch.profiler`` (as above).
 
 Prints one JSON object with every number and the card's name and power
@@ -117,8 +117,7 @@ def replay(qfa, lfa, blosum, gi, ge, dev):
 
 def replay_profiles(qfn, lib_dir, dev):
     """One pass over ``--profiles 1``'s stages; returns {stage: seconds}
-    (K5 summed over its launches, one per bucket; K6 and K3 one launch
-    each)."""
+    (K5, K6 and K3 one launch each)."""
     from alignment_algos_tpu_torch.cli import screen as cli
     from alignment_algos_tpu_torch.ops import dp_scores as ds
     from alignment_algos_tpu_torch.ops import hmap_device as hd
@@ -135,8 +134,9 @@ def replay_profiles(qfn, lib_dir, dev):
     alpha = float(np.float32(params.alpha))
     shift = float(-np.float32(params.zero_shift))
     bs = list(library.buckets.values())
-    raws = [hd.hmap_sim(qt["aa"], qt["zsse"], qt["conf"], b["aa"],
-                        b["zsse"], b["conf"], alpha) for b in bs]
+    raws = hd.hmap_sim_ragged(qt["aa"], qt["zsse"], qt["conf"],
+                              [(b["aa"], b["zsse"], b["conf"]) for b in bs],
+                              alpha)
     t3 = sync()
     st["K5"] = t3 - t2
     Ss = hd.hmap_znorm_ragged(raws, shift)
