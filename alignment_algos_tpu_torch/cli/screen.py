@@ -12,7 +12,9 @@ area metric.
 the similarity on the device, K3 runs the general-gap DP.  ``--smap 1``:
 fold recognition over SMAP structure templates with ``Gn2Eval``, costs
 built on the host, K3 on the device.  Output is byte-equal to the JAX
-package's tool in every mode.
+package's tool in every mode.  Where more than one card is visible, the
+library (FASTA) or each length bucket (profiles) is split over all of them
+(``parallel/screen``), as the JAX tool splits it over its mesh.
 
     python -m alignment_algos_tpu_torch.cli.screen query.fa library.fa
         [--top_k 10] [--gap_init F] [--gap_extn F] [--SUB_MATRIX file]
@@ -22,7 +24,8 @@ package's tool in every mode.
     python -m alignment_algos_tpu_torch.cli.screen query.prof smaps.txt
         --smap 1 [--top_k 10] [--KEY value ...]
 
-``AAT_TORCH_DEVICE`` picks the device (``cuda`` by default, or ``cpu``).
+``AAT_TORCH_DEVICE`` picks the device (``cuda`` by default, or ``cpu``);
+``AAT_TRACE_DIR`` writes a trace of the whole run there.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import torch
 from ..scoring.submatrix import BlosumMatrix
 from ..utils.params import (AliParams, ApplicationParams, Argv, RCfile,
                             apply_layers)
-from ..utils.torchenv import device_from_env
+from ..utils.torchenv import device_from_env, maybe_start_trace
 
 __all__ = ["PAD_WALL", "ScreenInputs", "main", "read_inputs",
            "read_profiles"]
@@ -144,6 +147,7 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(e, file=sys.stderr)
         return -1
+    maybe_start_trace()
     try:
         return _run(argv, device)
     except (ValueError, OSError) as e:
@@ -188,18 +192,19 @@ def _run(argv, device: torch.device) -> int:
                       ali_params.submatrix_fn)
     q_codes, t_codes, table = inp.q_codes, inp.t_codes, inp.table
 
+    mesh = _mesh(device)
     if ckpt:
         from ..parallel.checkpoint import screen_library_checkpointed
         scores, idx, done = screen_library_checkpointed(
             q_codes, t_codes, table, gi, ge, k=k, chunk_size=chunk,
-            ckpt_path=ckpt, device=device)
+            ckpt_path=ckpt, mesh=mesh, device=device)
         if not done:
             print("screen incomplete (resume with the same command)",
                   file=sys.stderr)
     else:
         from ..parallel.screen import screen_library
         scores, idx = screen_library(q_codes, t_codes, table, gi, ge, k=k,
-                                     device=device)
+                                     mesh=mesh, device=device)
 
     names = inp.names
     print(f"# query: {inp.query_name} ({inp.query_len} aa) vs "
@@ -212,6 +217,16 @@ def _run(argv, device: torch.device) -> int:
         _cluster_hits(q_codes, t_codes, table, gi, ge, idx, names, thresh,
                       inp.pad_code, device)
     return 0
+
+
+def _mesh(device: torch.device):
+    """A mesh of every visible card where there is more than one, else
+    None (one device), as the JAX tool takes its mesh
+    (cli/screen.py:204-210)."""
+    if device.type != "cuda" or torch.cuda.device_count() < 2:
+        return None
+    from ..parallel.screen import default_mesh
+    return default_mesh(device=device)
 
 
 def read_profiles(query_fn: str, lib_arg: str, smap: bool = False):
@@ -244,7 +259,8 @@ def read_profiles(query_fn: str, lib_arg: str, smap: bool = False):
 def _run_profiles(args, k: int, rc, top, device: torch.device,
                   smap: bool = False) -> int:
     """``--profiles 1`` (exact HMAP profile-profile screen) and ``--smap
-    1`` (Gn2Eval fold recognition over SMAP templates), on one device."""
+    1`` (Gn2Eval fold recognition over SMAP templates), each length bucket
+    split over the visible cards where there are several."""
     from ..parallel.screen import screen_profiles
 
     query, templates, files = read_profiles(args.get_arg(0), args.get_arg(1),
@@ -263,7 +279,7 @@ def _run_profiles(args, k: int, rc, top, device: torch.device,
         kind = "template"
 
     scores, order = screen_profiles(query, templates, factory, k=k,
-                                    device=device)
+                                    device=device, mesh=_mesh(device))
     print(f"# query profile vs {len(templates)} {kind} profiles; "
           f"top {len(order)}")
     print("# rank\tscore\tindex\tfile")

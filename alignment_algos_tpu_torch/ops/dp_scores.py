@@ -37,9 +37,10 @@ The TPU's 8-pair sublane groups, 128-lane padding and VMEM cap have no
 counterpart and there is no ``supported()`` gate and no fallback: K3 keeps
 its rows in shared memory, which holds t2 up to 7,200 in the vector form
 and 19,200 in the table form (a longer pair raises at launch).
-:func:`vec_max_t2` reads the vector form's cap from the kernel's library,
-and the profile screen scores a longer template's bucket on K7 instead
-(``hmap_device.screen_hmap_device``).  The bounds are the whole matrix,
+:func:`vec_max_t2` and :func:`table_max_t2` read the two forms' caps from
+the kernel's library, and the profile screens score a longer template's
+bucket on K7 instead (``hmap_device.screen_hmap_device``, and
+``parallel/screen`` through :func:`max_t2`).  The bounds are the whole matrix,
 q0 = t0 = 0, q1 = q2 - 1, t1 = t2 - 1, as every caller uses them.
 """
 
@@ -56,7 +57,8 @@ NEG = -3.0e38
 
 __all__ = ["NEG", "PAIR_DTYPE", "dp_general", "dp_general_plain",
            "dp_general_ragged", "dp_general_ragged_plain",
-           "forward_scores_batch", "prepare_tables", "vec_max_t2"]
+           "forward_scores_batch", "max_t2", "prepare_tables",
+           "table_max_t2", "vec_max_t2", "vector_form"]
 
 
 # ----------------------------------------------------------- plain version
@@ -353,9 +355,17 @@ dp_general_ragged.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _vec_max_t2_on(index: int) -> int:
+def _max_t2_on(index: int, vec: bool) -> int:
     with torch.cuda.device(index):
-        return int(_build.load().lib.dp_general_max_t2(1))
+        return int(_build.load().lib.dp_general_max_t2(int(vec)))
+
+
+def _max_t2(device, vec: bool) -> int | None:
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return _max_t2_on(device.index if device.index is not None
+                      else torch.cuda.current_device(), vec)
 
 
 def vec_max_t2(device) -> int | None:
@@ -363,11 +373,27 @@ def vec_max_t2(device) -> int | None:
     (its rows in shared memory: 7,200 on an H100), read from the kernel's
     library once per card; None on the CPU, where the plain version has no
     cap."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return None
-    return _vec_max_t2_on(device.index if device.index is not None
-                          else torch.cuda.current_device())
+    return _max_t2(device, True)
+
+
+def table_max_t2(device) -> int | None:
+    """The longest t2 that :func:`dp_general` takes on ``device`` (19,200
+    on an H100); None on the CPU, as :func:`vec_max_t2`."""
+    return _max_t2(device, False)
+
+
+def vector_form(costs: list) -> bool:
+    """Whether :func:`forward_scores_batch` scores ``costs`` in K3's vector
+    form (every pair has gap vectors and one deletion mode), else in its
+    table form."""
+    return all(c.del_gi_vec is not None and c.del_align == costs[0].del_align
+               for c in costs)
+
+
+def max_t2(costs: list, device) -> int | None:
+    """The longest t2 that :func:`forward_scores_batch` takes on ``device``
+    for ``costs``: the cap of the form it picks (:func:`vector_form`)."""
+    return (vec_max_t2 if vector_form(costs) else table_max_t2)(device)
 
 
 # -------------------------------------------------- tables and entry point
@@ -437,8 +463,7 @@ def forward_scores_batch(costs: list, local: bool = False, *,
     if q2 < 3 or t2 < 3:
         return dp_pallas.forward_h_reference(costs, local=local)[:, -1, -1]
 
-    vec_d = all(c.del_gi_vec is not None and c.del_align == costs[0].del_align
-                for c in costs)
+    vec_d = vector_form(costs)
     if vec_d:
         D = np.stack([np.stack([c.del_gi_vec, c.del_ge_vec]) for c in costs])
     else:

@@ -8,7 +8,7 @@ a preempted sweep rerun with the same arguments resumes where it stopped
 and reproduces the direct screen's result bit for bit: the merge is the
 same deterministic ranking (score descending, template id ascending).
 The file format is the JAX package's, so either package can resume the
-other's checkpoint.
+other's checkpoint.  With a mesh, each chunk is screened over it.
 """
 
 from __future__ import annotations
@@ -18,15 +18,7 @@ import os
 import numpy as np
 import torch
 
-from .screen import screen_library
-
-
-def _merge_topk(scores_a, idx_a, scores_b, idx_b, k: int):
-    """Deterministic top-k merge: score desc, ties by template id asc."""
-    scores = np.concatenate([scores_a, scores_b])
-    idx = np.concatenate([idx_a, idx_b])
-    order = np.lexsort((idx, -scores))[:k]
-    return scores[order], idx[order]
+from .screen import Mesh, merge_topk, screen_library
 
 
 class ScreenCheckpoint:
@@ -56,8 +48,10 @@ class ScreenCheckpoint:
         return self
 
     def record(self, chunk: int, scores, idx) -> None:
-        self.scores, self.idx = _merge_topk(self.scores, self.idx,
-                                            scores, idx, self.k)
+        # deterministic top-k merge: score desc, ties by template id asc
+        self.scores, self.idx = merge_topk(
+            np.concatenate([self.scores, scores]),
+            np.concatenate([self.idx, idx]), self.k)
         self.done[chunk] = True
         self.save()
 
@@ -75,14 +69,15 @@ class ScreenCheckpoint:
 
 def screen_library_checkpointed(q_codes, t_codes, table, gi: float, ge: float,
                                 k: int = 10, chunk_size: int = 1024,
-                                ckpt_path: str = "",
+                                ckpt_path: str = "", mesh: Mesh | None = None,
                                 max_chunks: int | None = None, *,
                                 device: torch.device | None = None):
     """Resumable chunked screen of one query against a template library.
 
     Same result as ``screen_library``, processed ``chunk_size`` templates
     at a time with the running state checkpointed to ``ckpt_path`` after
-    every chunk.  ``max_chunks`` bounds how many incomplete chunks this
+    every chunk; ``mesh`` goes to each chunk's ``screen_library``.
+    ``max_chunks`` bounds how many incomplete chunks this
     call processes; the result is complete only when ``all_done``.
 
     Returns (scores, indices, all_done)."""
@@ -100,7 +95,8 @@ def screen_library_checkpointed(q_codes, t_codes, table, gi: float, ge: float,
             break
         lo, hi = c * chunk_size, min((c + 1) * chunk_size, n)
         scores, idx = screen_library(q_codes, t_codes[lo:hi], table, gi, ge,
-                                     k=min(k_eff, hi - lo), device=device)
+                                     k=min(k_eff, hi - lo), mesh=mesh,
+                                     device=device)
         ckpt.record(c, scores.astype(np.float32), idx.astype(np.int64) + lo)
         processed += 1
 

@@ -83,7 +83,25 @@
    libraries outside the timed runs.  Each run's wall is split
    into its DP builds (cost model, engine) and the rest (enumeration,
    output).
-7. Checks that no module of the JAX package (``alignment_algos_tpu``) nor
+7. The scale-out layer (``parallel/screen``, ``parallel/distributed``),
+   every result compared at tolerance 0.  BASELINE config 2: 100
+   sequences of 256 residues from the seed, all against all through
+   ``screen_grid`` on a (1, 1) mesh of the card (K1 in its per-lane form);
+   every row equals that query's ``screen_library`` scores, every top k
+   ``screen_library_host``; a (2, 2) mesh naming cuda:0 four times gives
+   the same three arrays.  Phase 4's library on a 4-entry mesh of cuda:0
+   at both gap settings equals the ``mesh=None`` screen;
+   ``launch_local_screen`` at that size, a gloo group of two ranks on the
+   card and a one-process NCCL group (``reps=2``), gives every rank the
+   one-process result.  ``screen_profiles`` over phase 5's first 64
+   templates on a 2-entry mesh of cuda:0 (host costs, K3 per shard) equals
+   the ``mesh=None`` screen as float32 bits; phase 5's past-cap library
+   through the host-build route (an ``HMAPaliEval`` subclass) launches K3
+   for the buckets it holds and K7 for the 7,300-residue one, every score
+   equal to ``dp_ref``.  Logs the walls, K1's per-lane launch alone at
+   the grid's shape, and the launches, which the kernels' line adds to
+   K1's, K3's and K7's.
+8. Checks that no module of the JAX package (``alignment_algos_tpu``) nor
    ``jax`` was loaded, then prints the kernels' JSON line (each kernel's
    launches on its path, error, time, plain time, and its bound: the larger
    of its bytes over the card's memory rate and its operations over the
@@ -149,6 +167,10 @@ K7_SHAPES = [(1, 9, 7, None), (3, 13, 21, None), (2, 41, 33, None),
 # K7's chain floor, worked out and not measured: per row one cluster
 # barrier and one round of distributed-shared stores, an assumed 0.3-0.5 us
 K7_ROW_US = (0.3, 0.5)
+# the scale-out layer: BASELINE config 2's all-vs-all (GRID_N sequences of
+# GRID_LEN residues); entries of cuda:0 in the sharded library screen and
+# in the sharded profile screen
+GRID_N, GRID_LEN, LIB_SHARDS, PROF_SHARDS = 100, 256, 4, 2
 # published H100 SXM rates: HBM bytes per second; float32 and float64
 # lanes per SM, each one operation per clock
 HBM_BYTES_PER_S = 3.35e12
@@ -975,7 +997,8 @@ def run_big_template_screen(cli, d, dev, card):
     K3 scores the buckets it holds in one launch and K7 the long one; the
     run fails on other counts.  Every score, through ``screen_profiles``,
     equals the host ``HMAPaliEval.build_costs`` + ``dp_ref`` as float32
-    bits, and the CLI prints those scores in that order."""
+    bits, and the CLI prints those scores in that order.  Returns the
+    run's record and (query, templates, those scores) for phase 7."""
     from alignment_algos_tpu_torch.ops import dp_engine as de
     from alignment_algos_tpu_torch.ops import dp_pallas as dpp
     from alignment_algos_tpu_torch.ops import dp_scores as ds
@@ -1023,7 +1046,7 @@ def run_big_template_screen(cli, d, dev, card):
         f"every score equals dp_ref as float32 bits (host build_costs + "
         f"dp_ref {ref_s:.3f} s) on {card}")
     return {"big_template_wall_s": wall, "big_template_dp_ref_s": ref_s,
-            "k3_vec_max_t2": cap}
+            "k3_vec_max_t2": cap}, (query, templates, want)
 
 
 # -------------------------------------- the exact DP builds behind the tools
@@ -1308,6 +1331,229 @@ def run_dp_paths(d, na_files, card):
     return total, records
 
 
+# ------------------------------------------------------- the scale-out layer
+
+def same_np(a, b) -> bool:
+    """Equal shapes and values, float32 compared as bits."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype == np.float32 or b.dtype == np.float32:
+        a = np.ascontiguousarray(a, np.float32).view(np.int32)
+        b = np.ascontiguousarray(b, np.float32).view(np.int32)
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def timed(fn):
+    """fn's result and its wall seconds, from a synchronize to one."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_grid(cli, d, blosum, card) -> tuple:
+    """BASELINE config 2: GRID_N sequences of GRID_LEN residues from the
+    seed, all against all through ``screen_grid`` on a (1, 1) mesh of the
+    card, K1's count set to 0 just before and read just after.  Every row
+    equals that query's ``screen_library`` scores (k = every template) and
+    its top k ``screen_library_host`` (the plain version on the card,
+    ``np.lexsort``); each sequence ranks itself first; a (2, 2) mesh
+    naming cuda:0 four times gives the same three arrays.  Returns K1's
+    launches and the record."""
+    import torch
+    from alignment_algos_tpu_torch.ops import swaffine as sw
+    from alignment_algos_tpu_torch.parallel import screen as ps
+
+    rng = np.random.default_rng(SEED + 7)
+    fa = os.path.join(d, "grid.fa")
+    with open(fa, "w") as f:
+        f.write("".join(f">g{n:03d}\n"
+                        + "".join(AA[i] for i in rng.integers(0, 20, GRID_LEN))
+                        + "\n" for n in range(GRID_N)))
+    g = cli.read_inputs(fa, fa, blosum)
+    codes, table = g.t_codes, g.table
+    assert codes.shape == (GRID_N, GRID_LEN), codes.shape
+    cuda0 = torch.device("cuda", 0)
+    gi, ge = GAPS[0]
+    sw.sw_affine_scores.launches = 0
+    got, wall = timed(lambda: ps.screen_grid(
+        codes, codes, table, gi, ge, k=TOP_K,
+        mesh=ps.grid_mesh((1, 1), device=cuda0)))
+    k1 = sw.sw_affine_scores.launches
+    assert k1 >= 1, "screen_grid never launched K1"
+    scores, ts, ti = got
+    assert scores.shape == (GRID_N, GRID_N) and ti.shape == (GRID_N, TOP_K)
+    assert np.isfinite(scores).all()
+    assert (ti[:, 0] == np.arange(GRID_N)).all(), ti[:, 0]
+    t0 = time.perf_counter()
+    for r in range(GRID_N):
+        s, i = ps.screen_library(codes[r], codes, table, gi, ge, k=GRID_N,
+                                 device=cuda0)
+        row = np.empty(GRID_N, np.float32)
+        row[i] = s
+        assert same_np(scores[r], row), f"grid row {r} != screen_library"
+    one_by_one = time.perf_counter() - t0
+    for r in range(GRID_N):
+        hs, hi = ps.screen_library_host(codes[r], codes, table, gi, ge,
+                                        k=TOP_K, device=cuda0)
+        assert same_np(ts[r], hs) and (ti[r] == hi).all(), \
+            f"grid row {r}: top k != screen_library_host"
+    four = ps.Mesh(np.full((2, 2), cuda0, dtype=object), ("qb", "lib"))
+    got4, wall4 = timed(lambda: ps.screen_grid(codes, codes, table, gi, ge,
+                                               k=TOP_K, mesh=four))
+    assert all(same_np(a, b) for a, b in zip(got, got4)), \
+        "the (2, 2) mesh of cuda:0 differs from the (1, 1) mesh"
+    # K1's per-lane launch at the grid's shape alone, outside the count
+    q, t, tab, gap = sw.to_device(codes, codes, table, gi, ge, cuda0)
+    lanes_q = q.repeat_interleave(GRID_N, dim=1).contiguous()
+    lanes_t = t.repeat(1, GRID_N).contiguous()
+    k1_ms = cuda_ms(lambda: sw.sw_affine_scores(lanes_q, lanes_t, tab, gap),
+                    5)
+    cells = GRID_N * GRID_N * GRID_LEN * GRID_LEN
+    a = table.shape[0]
+    bd = bound(4 * (2 * GRID_LEN * GRID_N * GRID_N + a * a + 2
+                    + GRID_N * GRID_N), 11 * cells)
+    log(f"grid (BASELINE config 2, {GRID_N} x {GRID_N} x {GRID_LEN} x "
+        f"{GRID_LEN}, {cells} cells): screen_grid on a (1, 1) mesh "
+        f"{wall:.4f} s, {cells / wall:.4g} cells/s (K1 +{k1} launches); "
+        f"on a (2, 2) mesh of cuda:0 {wall4:.4f} s; the {GRID_N} queries "
+        f"one by one through screen_library (k = {GRID_N}) {one_by_one:.4f} "
+        f"s; K1 per-lane launch alone {k1_ms:.4f} ms (bound "
+        f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}); every row equals "
+        f"screen_library, every top k screen_library_host, on {card}")
+    return k1, {"grid_wall_s": wall, "grid_cells": cells,
+                "grid_cells_per_s": cells / wall, "grid_k1_launches": k1,
+                "grid_2x2_wall_s": wall4, "grid_one_by_one_s": one_by_one,
+                "grid_k1_launch_ms": k1_ms,
+                "grid_k1_bound_ms": bd["bound_ms"]}
+
+
+def run_sharded_library(inp, homologs, card) -> tuple:
+    """Phase 4's screen (512 x 5120) over a LIB_SHARDS-entry mesh of
+    cuda:0 at both gap settings (K1's count set to 0 just before each and
+    read just after), bit-equal to the ``mesh=None`` screen, the homologs
+    first; then ``launch_local_screen`` at the same size, a gloo group of
+    two ranks on the card and a one-process NCCL group, each rank's result
+    bit-equal to the one-process screen.  Returns K1's launches and the
+    record."""
+    import torch
+    from alignment_algos_tpu_torch.ops import swaffine as sw
+    from alignment_algos_tpu_torch.parallel import screen as ps
+    from alignment_algos_tpu_torch.parallel.distributed import (
+        launch_local_screen)
+
+    cuda0 = torch.device("cuda", 0)
+    q, t, table = inp.q_codes, inp.t_codes, inp.table
+    hom = sorted(inp.names.index(h) for h in homologs)
+    mesh = ps.Mesh([cuda0] * LIB_SHARDS, ("dp",))
+    k1, rec, ref = 0, {}, {}
+    for gi, ge in GAPS:
+        sw.sw_affine_scores.launches = 0
+        (s4, i4), w4 = timed(lambda: ps.screen_library(
+            q, t, table, gi, ge, k=TOP_K, mesh=mesh))
+        n = sw.sw_affine_scores.launches
+        assert n == LIB_SHARDS, f"{LIB_SHARDS} shards, K1 +{n}"
+        k1 += n
+        (s1, i1), w1 = timed(lambda: ps.screen_library(
+            q, t, table, gi, ge, k=TOP_K, device=cuda0))
+        assert same_np(s4, s1) and (i4 == i1).all(), \
+            f"gaps {gi}/{ge}: the sharded screen differs from one device"
+        assert sorted(i4[:N_HOMOLOGS].tolist()) == hom, i4
+        ref[(gi, ge)] = (s1, i1)
+        rec[f"sharded_{gi}_{ge}"] = {"mesh_wall_s": w4, "one_wall_s": w1}
+        log(f"sharded library {N_LIB} x {Q_LEN} at {gi}/{ge}: "
+            f"{LIB_SHARDS}-entry mesh of cuda:0 {w4:.4f} s (K1 +{n}), "
+            f"mesh=None {w1:.4f} s; bit-equal, homologs 1-{N_HOMOLOGS}, on "
+            f"{card}")
+    gi, ge = GAPS[0]
+    s1, i1 = ref[(gi, ge)]
+    for tag, kw in (("gloo, 2 ranks x 1 entry on cuda:0",
+                     dict(backend="gloo", num_processes=2,
+                          devices_per_process=1)),
+                    ("NCCL, 1 rank x 2 entries",
+                     dict(num_processes=1, devices_per_process=2))):
+        (res, walls), wall = timed(lambda: launch_local_screen(
+            q, t, table, gi, ge, TOP_K, timeout=300.0, reps=2,
+            return_walls=True, device="cuda", **kw))
+        assert len(res) == kw["num_processes"]
+        for s, i in res:
+            assert same_np(s, s1) and (i == i1).all(), \
+                f"{tag}: a rank's result differs from one process"
+        rec[f"processes: {tag}"] = {"warm_walls_s": walls,
+                                    "launch_wall_s": wall}
+        log(f"launch_local_screen ({tag}) at {gi}/{ge}: every rank "
+            f"bit-equal to one process; warm screen walls "
+            f"{', '.join(f'{w:.4f}' for w in walls)} s, launch {wall:.2f} s "
+            f"(rank start-up included) on {card}")
+    return k1, rec
+
+
+def run_sharded_profiles(cli, qfn, files, big, card) -> tuple:
+    """``screen_profiles`` over phase 5's first N_SAME templates on a
+    PROF_SHARDS-entry mesh of cuda:0 (the host cost build, K3 per shard of
+    each bucket; its count set to 0 just before and read just after),
+    bit-equal to the ``mesh=None`` screen (the device similarity route);
+    then ROADMAP C6, phase 5's past-cap library through the host-build route (an
+    ``HMAPaliEval`` subclass): K3 for the buckets it holds, K7 for the
+    7,300-residue one, every score equal to host ``build_costs`` +
+    ``dp_ref``.  Returns K3's and K7's launches and the record."""
+    import torch
+    from alignment_algos_tpu_torch.ops import dp_engine as de
+    from alignment_algos_tpu_torch.ops import dp_scores as ds
+    from alignment_algos_tpu_torch.ops import hmap_device as hd
+    from alignment_algos_tpu_torch.parallel import screen as ps
+
+    def k3():
+        return ds.dp_general_ragged.launches + ds.dp_general.launches
+
+    cuda0 = torch.device("cuda", 0)
+    lst = os.path.join(os.path.dirname(qfn), "first_sharded.txt")
+    with open(lst, "w") as f:
+        f.write("".join(fn + "\n" for fn in files[:N_SAME]))
+    query, templates, _ = cli.read_profiles(qfn, lst)
+    params = hd.HMAPaliParams()
+    factory = lambda a, b: hd.HMAPaliEval(params)        # noqa: E731
+    (want, want_o), w1 = timed(lambda: ps.screen_profiles(
+        query, templates, factory, k=TOP_K, device=cuda0))
+    ds.dp_general_ragged.launches = ds.dp_general.launches = 0
+    mesh = ps.Mesh([cuda0] * PROF_SHARDS, ("dp",))
+    (got, got_o), w2 = timed(lambda: ps.screen_profiles(
+        query, templates, factory, k=TOP_K, device=cuda0, mesh=mesh))
+    n3 = k3()
+    buckets = len({t.size() for t in templates})
+    assert n3 >= buckets, (n3, buckets)
+    assert same_np(got, want) and (np.asarray(got_o) == want_o).all(), \
+        "the sharded profile screen differs from the mesh=None screen"
+    log(f"sharded profile screen, first {N_SAME} templates ({buckets} "
+        f"buckets): {PROF_SHARDS}-entry mesh of cuda:0 (host costs, K3 "
+        f"+{n3}) {w2:.3f} s, mesh=None (K5, K6, K3) {w1:.3f} s; bit-equal "
+        f"(int32 view) on {card}")
+
+    class Subclass(hd.HMAPaliEval):
+        """Takes the host-build route (not exactly HMAPaliEval)."""
+
+    bq, bt, bwant = big
+    counters = (ds.dp_general_ragged, ds.dp_general, de.dp_forward_tb)
+    for fn in counters:
+        fn.launches = 0
+    (scores, _), wc = timed(lambda: ps.screen_profiles(
+        bq, bt, lambda a, b: Subclass(params), k=len(bt), device=cuda0))
+    n_big = tuple(fn.launches for fn in counters)
+    # one K3 launch per bucket under the cap: every length but 7,300
+    short = len(set(BIG_TEMPLATES)) - 1
+    assert n_big == (short, 0, 1), n_big
+    assert same_np(scores, bwant), (scores, bwant)
+    log(f"ROADMAP C6, the host-build route past K3's cap ({BIG_TEMPLATES}): K3 "
+        f"+{n_big[0]} (one per bucket it holds), K7 +{n_big[2]} for the "
+        f"long bucket, {wc:.3f} s; every score equals dp_ref as float32 "
+        f"bits, on {card}")
+    return n3 + n_big[0], n_big[2], {
+        "profiles_sharded_wall_s": w2, "profiles_one_wall_s": w1,
+        "profiles_sharded_k3_launches": n3, "c6_wall_s": wc,
+        "c6_k3_k7_launches": [n_big[0], n_big[2]]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1404,7 +1650,8 @@ def main() -> int:
         prof_launches, prof_run = run_profile_screens(
             cli, d, qfn, lib_dir, files, hom_files, card)
         launches.update(prof_launches)
-        prof_run.update(run_big_template_screen(cli, d, dev, card))
+        big_run, big = run_big_template_screen(cli, d, dev, card)
+        prof_run.update(big_run)
 
         # phase 6: the exact DP builds behind the alignment tools
         na_files = make_nalign_pair(d)
@@ -1414,6 +1661,20 @@ def main() -> int:
             f"{costs_s:.3f} s, K7 build (tables, launch, pull) "
             f"{k7_build_s:.3f} s on {card}")
         launches["k7"], dp_runs = run_dp_paths(d, na_files, card)
+
+        # phase 7: the scale-out layer
+        t7 = time.perf_counter()
+        k1_grid, scale_out = run_grid(cli, d, blosum, card)
+        k1_lib, rec = run_sharded_library(inp, homologs, card)
+        scale_out.update(rec)
+        k3_prof, k7_prof, rec = run_sharded_profiles(cli, qfn, files, big,
+                                                     card)
+        scale_out.update(rec)
+        launches["k1"] += k1_grid + k1_lib
+        launches["k3"] += k3_prof
+        launches["k7"] += k7_prof
+        scale_out["phase_s"] = time.perf_counter() - t7
+        log(f"phase 7 (the scale-out layer): {scale_out['phase_s']:.1f} s")
     assert "jax" not in sys.modules, "the port imported jax"
     ref = sorted(m for m in sys.modules if m == "alignment_algos_tpu"
                  or m.startswith("alignment_algos_tpu."))
@@ -1527,6 +1788,7 @@ def main() -> int:
     log(json.dumps({"profiles_run": prof_run}))
     log(json.dumps({"dp_runs": dp_runs, "nalign_build_split_s": {
         "host_costs": costs_s, "k7_build": k7_build_s}}))
+    log(json.dumps({"scale_out": scale_out}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

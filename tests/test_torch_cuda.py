@@ -4,7 +4,9 @@ agrees with the numpy Gotoh oracle; K3 (general-gap DP, both modes), K5
 (HMAP similarity) and K6 (z-norm, one launch over many buckets) equal
 their plain versions, K3 equals the numpy ``dp_ref`` engine and K5 + K6
 equal the host ``build_costs`` S; a profile screen with a template past
-K3's shared-memory cap scores it on K7, equal to ``dp_ref``; K8
+K3's shared-memory cap scores it on K7, equal to ``dp_ref``, on the
+device route and on the host-build route; the sharded library screen and
+the grid on meshes that name the card several times; K8
 (the traceback decode) equals its plain version and the numpy decode.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports only the port (no
@@ -656,6 +658,92 @@ def test_screen_with_a_template_past_k3_cap(cuda):
     np.testing.assert_array_equal(scores.view(np.uint32),
                                   want.view(np.uint32))
     assert list(order) == list(np.lexsort((np.arange(4), -want)))
+
+
+def test_host_build_route_past_k3_cap_takes_k7(cuda):
+    """ROADMAP C6: an ``HMAPaliEval`` subclass takes the host-build route; the
+    7,300-residue template's bucket (past the vector form's cap) is scored
+    on K7, every other bucket on K3, and every score equals ``dp_ref``."""
+    from alignment_algos_tpu_torch.ops import dp_engine
+    from alignment_algos_tpu_torch.parallel import screen
+    from alignment_algos_tpu_torch.scoring.hmap_eval import HMAPaliEval
+    from alignment_algos_tpu_torch.utils.params import HMAPaliParams
+
+    class Subclass(HMAPaliEval):
+        pass
+
+    rng = np.random.default_rng(24)
+    query, *templates = _profiles(rng, [30, 41, 55, 41, 7300])
+    params = HMAPaliParams()
+    n3 = dp_scores.dp_general_ragged.launches
+    n7 = dp_engine.dp_forward_tb.launches
+    scores, order = screen.screen_profiles(
+        query, templates, lambda a, b: Subclass(params), k=4, device=cuda)
+    assert dp_scores.dp_general_ragged.launches == n3 + 2
+    assert dp_engine.dp_forward_tb.launches == n7 + 1
+    ev = HMAPaliEval(params)
+    want = np.asarray([dp_pallas.forward_h_reference(
+        [ev.build_costs(query, t)])[0, -1, -1] for t in templates],
+        np.float32)
+    np.testing.assert_array_equal(scores.view(np.uint32),
+                                  want.view(np.uint32))
+
+
+@pytest.mark.parametrize("gi,ge", GAPS)
+def test_sharded_screen_on_four_entries_of_one_card(cuda, gi, ge):
+    """screen_library over a 4-entry mesh naming the card four times
+    (K1 once per shard) equals the one-launch screen and the plain
+    version's ranking."""
+    from alignment_algos_tpu_torch.parallel import screen
+    qc, tc, table = _inputs(300, 280, 1027, 41, True)
+    mesh = screen.Mesh([torch.device("cuda", 0)] * 4, ("dp",))
+    n1 = swaffine.sw_affine_scores.launches
+    s, i = screen.screen_library(qc, tc, table, gi, ge, k=40, mesh=mesh)
+    assert swaffine.sw_affine_scores.launches == n1 + 4
+    s1, i1 = screen.screen_library(qc, tc, table, gi, ge, k=40, device=cuda)
+    hs, hi = screen.screen_library_host(qc, tc, table, gi, ge, k=40,
+                                        device=cuda)
+    for ws, wi in ((s1, i1), (hs, hi)):
+        np.testing.assert_array_equal(i, wi)
+        np.testing.assert_array_equal(s.view(np.int32),
+                                      np.asarray(ws, np.float32).view(
+                                          np.int32))
+
+
+def test_grid_on_one_card(cuda):
+    """screen_grid on (1, 1) and on a (2, 2) mesh of the card: the same
+    three arrays; every row's scores equal the plain version's, its top k
+    the plain version's ranking."""
+    from alignment_algos_tpu_torch.parallel import screen
+    rng = np.random.default_rng(42)
+    qs = rng.integers(0, 20, (13, 70))
+    lib = rng.integers(0, 20, (37, 90))
+    lib[3, 40:] = PAD
+    table = np.full((21, 21), -1.0e4, np.float32)
+    table[:20, :20] = rng.integers(-4, 12, (20, 20))
+    one = screen.screen_grid(qs, lib, table, 4.73, 0.34, k=6,
+                             mesh=screen.grid_mesh((1, 1), device=cuda))
+    dev0 = torch.device("cuda", 0)
+    four = screen.screen_grid(
+        qs, lib, table, 4.73, 0.34, k=6,
+        mesh=screen.Mesh(np.full((2, 2), dev0, dtype=object),
+                         ("qb", "lib")))
+    for a, b in zip(one, four):
+        assert a.dtype == b.dtype
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        np.testing.assert_array_equal(a, b)
+    for r in range(len(qs)):
+        q, t, tab, gap = swaffine.to_device(qs[r], lib, table, 4.73, 0.34,
+                                            cuda)
+        plain = swaffine.sw_affine_scores_plain(
+            swaffine.skewed_similarity(q, t, tab), gap, q=70,
+            t=90).cpu().numpy()
+        np.testing.assert_array_equal(one[0][r].view(np.int32),
+                                      plain.view(np.int32))
+        hs, hi = screen.screen_library_host(qs[r], lib, table, 4.73, 0.34,
+                                            k=6, device=cuda)
+        np.testing.assert_array_equal(one[2][r], hi)
 
 
 def test_k5_expf_replica_exhaustive(cuda):

@@ -4,7 +4,8 @@
    the port's chip tools, imports ``jax`` or anything of
    ``alignment_algos_tpu`` (an AST scan of every file).
 2. The port's CLIs run in a subprocess (``nalign``, ``aat_screen`` in FASTA
-   mode and with ``--profiles 1``) load neither ``jax`` nor any
+   mode and with ``--profiles 1``), and a rank of its multi-process screen
+   (``parallel/distributed``), load neither ``jax`` nor any
    ``alignment_algos_tpu`` module.
 3. The port's copies of the JAX package's host layers do not drift: each
    file of ``COPIES`` is byte-equal to the JAX package's file at the same
@@ -59,11 +60,15 @@ def test_no_import_of_jax_or_the_jax_package(rel):
 # ----------------------------------------------------- 2. subprocess CLIs
 
 def _loaded_modules(module: str, argv: list[str]) -> tuple[str, list]:
-    """stdout of ``alignment_algos_tpu_torch.cli.<module>.main(argv)`` in a
+    """stdout of ``alignment_algos_tpu_torch.<module>.main(argv)`` (a CLI
+    under ``cli.``, or the distributed worker's ``_worker_main``) in a
     fresh interpreter on the CPU, and the jax / JAX-package modules it
     loaded."""
+    mod, _, fn = (f"cli.{module}" if "." not in module
+                  else module).partition(":")
     code = ("import sys\n"
-            f"from alignment_algos_tpu_torch.cli.{module} import main\n"
+            f"from alignment_algos_tpu_torch.{mod} import "
+            f"{fn or 'main'} as main\n"
             f"rc = main({argv!r})\n"
             "print('LOADED', sorted(m for m in sys.modules if m == 'jax'\n"
             "      or m.startswith(('jax.', 'jaxlib', 'alignment_algos_tpu.'))\n"
@@ -133,6 +138,34 @@ def test_cli_profiles_subprocess_never_imports_jax(tmp_path):
     assert loaded == []
 
 
+def test_distributed_worker_subprocess_never_imports_jax(tmp_path):
+    """One rank (a one-process gloo group over two mesh entries) runs the
+    worker's entry point and gives the one-process screen's result."""
+    import json
+
+    from alignment_algos_tpu_torch.parallel import distributed, screen
+    rng = np.random.default_rng(3)
+    q = rng.integers(0, 20, 24).astype(np.int32)
+    lib = rng.integers(0, 20, (8, 24)).astype(np.int32)
+    table = rng.integers(-4, 11, (20, 20)).astype(np.float32)
+    np.savez(tmp_path / "in.npz", q_codes=q, t_codes=lib, table=table)
+    spec = {"coordinator": f"127.0.0.1:{distributed.free_port()}",
+            "backend": "gloo", "num_processes": 1, "devices_per_process": 2,
+            "data": str(tmp_path / "in.npz"), "gi": 11.0, "ge": 1.0, "k": 4,
+            "reps": 1}
+    (tmp_path / "spec.json").write_text(json.dumps(spec))
+    out = str(tmp_path / "out.npz")
+    _, loaded = _loaded_modules(
+        "parallel.distributed:_worker_main",
+        [str(tmp_path / "spec.json"), out, "0"])
+    assert loaded == []
+    want_s, want_i = screen.screen_library(q, lib, table, 11.0, 1.0, k=4,
+                                           device="cpu")
+    with np.load(out) as z:
+        np.testing.assert_array_equal(z["idx"], want_i)
+        np.testing.assert_array_equal(z["scores"], want_s)
+
+
 # ------------------------------------------------------------- 3. drift
 
 COPIES = [
@@ -146,16 +179,19 @@ COPIES = [
     *(f"ssss/{m}.py" for m in ("__init__", "ali_frag", "defs", "engine",
                                "frag_matrix", "frag_set", "native_search",
                                "skel_ali", "skel_set", "strand_eval")),
-    "analysis/__init__.py", "analysis/ali_dist.py",
+    "analysis/__init__.py", "analysis/ali_dist.py", "analysis/shift.py",
+    "analysis/kmedoids.py",
     "core/__init__.py", "core/alignment.py",
     *(f"core/enumerators/{m}.py" for m in ("__init__", "crcw", "cw", "kscw",
                                            "native", "nativedelegate",
                                            "optimal", "ucw")),
     "ops/__init__.py", "ops/dp_ref.py", "ops/dp_affine.py",
-    *(f"utils/{m}.py" for m in ("__init__", "params", "hmath", "cxxsort")),
+    *(f"utils/{m}.py" for m in ("__init__", "params", "hmath", "cxxsort",
+                                "crand")),
     *(f"native/{f}" for f in ("exactmath.c", "alidist.cpp", "dpref.cpp",
                               "enumerate.cpp", "ssss_search.cpp")),
-    "cli/__init__.py", "cli/s4_align_gn2.py", "parallel/__init__.py",
+    "cli/__init__.py", "cli/s4_align_gn2.py", "cli/test_0.py",
+    "parallel/__init__.py",
 ]
 
 # the tools' one difference: main runs _run through cli/_tools.run_tool
@@ -181,6 +217,11 @@ DIFFERS = {
     "cli/nalign2.py": _TOOL,
     "cli/s4_align.py": _TOOL,
     "cli/s4_one_ali.py": _TOOL,
+    # get_shifts and get_area_diffs: their body nested in main, so that it
+    # runs through run_tool
+    "cli/get_shifts.py": _TOOL,
+    "cli/get_area_diffs.py": _TOOL,
+    "cli/cn_acc_analys.py": _TOOL,
     # without upgma_linkage_matrix_jax, the module's only JAX code
     "analysis/upgma.py": ({"upgma_linkage_matrix_jax"}, set()),
     # libraries build into build/ (build_native, imports), the libm
@@ -194,7 +235,8 @@ DIFFERS = {
 
 # the port's own modules at the JAX package's paths (no copies)
 OWN = {"__init__.py", "cli/screen.py", "parallel/screen.py",
-       "parallel/checkpoint.py", "ops/swaffine.py", "ops/swscan.py",
+       "parallel/checkpoint.py", "parallel/distributed.py",
+       "utils/profiling.py", "ops/swaffine.py", "ops/swscan.py",
        "ops/dp_scores.py", "ops/dp_pallas.py", "ops/dp_engine.py",
        "ops/hmap_device.py"}
 

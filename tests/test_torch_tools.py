@@ -232,3 +232,127 @@ def test_cli_refuses_cuda_without_a_card(monkeypatch):
     assert rc != 0 and out.getvalue() == ""
     assert "AAT_TORCH_DEVICE" in err.getvalue()
 
+
+
+# ------------------------------------------------ the host-only tools
+
+@pytest.fixture(scope="module")
+def shift_inputs(tmp_path_factory):
+    """tests/test_cli_tools.py:63-95's inputs: a PIR batch of suboptimal
+    alignments from ``aaa`` and the first of them as the native gapped
+    FASTA alignment."""
+    from alignment_algos_tpu_torch.io.pir import read_pir
+    d = tmp_path_factory.mktemp("shifts")
+    fa = d / "seqs.fa"
+    fa.write_text("> templ\nHEAGAWGHEEHEAGAWGHEE\n> query\n"
+                  "PAWHEAEPAWHEAE\n\n")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HOME", "/tmp/nonexistent-home")
+        mp.setenv("AAT_TORCH_DEVICE", "cpu")
+        out = capture(aaa.main, [str(fa), "--SUB_MATRIX", BLOSUM,
+                                 "--ALIGN_MODE", "1", "--OUTPUT_FORMAT", "1",
+                                 "--DELTA_RATIO", "0.3", "--NUM_SUBOPT",
+                                 "6"])
+    pir = d / "batch.pir"
+    pir.write_text(out[out.index("#start"):out.rindex("#end") + 4] + "\n")
+    with open(pir) as f:
+        first = read_pir(f)
+    t = first.get_templ_string("^HEAGAWGHEEHEAGAWGHEE$")[1:-1]
+    q = first.get_query_string("^PAWHEAEPAWHEAE$")[1:-1]
+    nat = d / "native.fa"
+    nat.write_text(f"> t\n{t}\n> q\n{q}\n")
+    return str(pir), str(nat)
+
+
+@pytest.fixture(scope="module")
+def cn_acc_alignment(tmp_path_factory):
+    """tests/test_cli_tools.py:42-60's ungapped overlay of the SMAP
+    fixture and query30."""
+    smap = tsmap.SMAPSequence.from_file(
+        os.path.join(DATA, "templ_smap.prof"), gn2=False)
+    hmap = thmap.HMAPSequence.from_file(os.path.join(DATA, "query30.prof"))
+    t, q = smap.get_string()[1:-1], hmap.get_string()[1:-1]
+    width = max(len(t), len(q))
+    fa = tmp_path_factory.mktemp("cn_acc") / "ali.fa"
+    fa.write_text(f"> t\n{t.ljust(width, '-')}\n> q\n{q.ljust(width, '-')}"
+                  "\n\n")
+    return str(fa)
+
+
+@pytest.mark.parametrize("tool", ["test_0", "cn_acc_analys", "get_shifts",
+                                  "get_area_diffs"])
+def test_host_tool_byte_equal_to_jax(tool, shift_inputs, cn_acc_alignment):
+    import importlib
+    port = importlib.import_module(f"alignment_algos_tpu_torch.cli.{tool}")
+    ref = importlib.import_module(f"alignment_algos_tpu.cli.{tool}")
+    argv = {
+        "test_0": ["--GAP_INIT_PENALTY", "9.5", "-a", "x", "foo"],
+        "cn_acc_analys": [cn_acc_alignment,
+                          os.path.join(DATA, "templ_smap.prof"),
+                          os.path.join(DATA, "query30.prof")],
+        "get_shifts": list(shift_inputs),
+        "get_area_diffs": list(shift_inputs),
+    }[tool]
+    got = capture(port.main, list(argv))
+    assert got == capture(ref.main, list(argv))
+    assert len(got.splitlines()) >= 6
+    if tool == "get_shifts":
+        assert "Cummulative statistics" in got
+
+
+def test_host_tools_refuse_cuda_without_a_card(shift_inputs, monkeypatch):
+    from alignment_algos_tpu_torch.cli import get_shifts
+    monkeypatch.setenv("AAT_TORCH_DEVICE", "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = get_shifts.main(list(shift_inputs))
+    assert rc != 0 and out.getvalue() == ""
+
+
+# tests/test_kmedoid_oracle.py's cases: (matrix seed, points, clusterer
+# seed, k, mode, argument)
+KMEDOID_CASES = [
+    (0, 15, 1, 2, "sa", 0.5), (0, 15, 12345, 3, "sa", 0.3),
+    (0, 15, 7, 2, "fgc", 5), (0, 15, 99, 4, "fgc", 3),
+    (1, 24, 42, 5, "fgc", 10), (1, 24, 8, 3, "sa", 0.8),
+    (2, 40, 17, 4, "sa", 0.6), (2, 40, 2026, 6, "fgc", 6),
+    (3, 9, 555, 2, "sa", 2.0),
+]
+
+
+def _kmedoids_output(mod, d, seed, k, mode, arg) -> str:
+    """tests/test_kmedoid_oracle.py's rendering of one clustering."""
+    km = mod.KMedoidClusterer(mod.ClusterSet(np.tril(d)), k, seed=seed)
+    res = (km.simulated_annealing(arg) if mode == "sa"
+           else km.find_good_clustering(int(arg)))
+    return "\n".join(
+        f"{r[0]}:" + ("" if len(r) == 1 else " " + " ".join(map(str, r[1:])))
+        for r in res) + "\n"
+
+
+@pytest.mark.parametrize("mseed,n,seed,k,mode,arg", KMEDOID_CASES)
+def test_kmedoids_equal_jax(mseed, n, seed, k, mode, arg):
+    from alignment_algos_tpu.analysis import kmedoids as rkm
+    from alignment_algos_tpu_torch.analysis import kmedoids as tkm
+    rng = np.random.default_rng(mseed)
+    centers = rng.uniform(0, 8, (3, 2))
+    pts = np.concatenate([rng.normal(c, 0.4, (n // 3 + 1, 2))
+                          for c in centers])[:n]
+    d = np.linalg.norm(pts[:, None] - pts[None, :], axis=-1).astype(
+        np.float32)
+    got = _kmedoids_output(tkm, d, seed, k, mode, arg)
+    assert got == _kmedoids_output(rkm, d, seed, k, mode, arg)
+    assert got.strip()
+
+
+def test_glibc_rand_replica():
+    """utils/crand against the host glibc outputs of
+    tests/test_kmedoid_oracle.py."""
+    from alignment_algos_tpu_torch.utils.crand import GlibcRandom
+    golden = {1: [1804289383, 846930886, 1681692777],
+              12345: [383100999, 858300821, 357768173],
+              999999999: [1477763614, 681512474, 778291828]}
+    for seed, want in golden.items():
+        g = GlibcRandom(seed)
+        assert [g.rand() for _ in range(3)] == want
