@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..scoring.base import DPCosts
+from ..utils import profiling
 from . import _build, dp_ref
 from .dp_ref import NULL, DPResult
 from .dp_pallas import _bucket_shape, _host_tables
@@ -309,30 +310,31 @@ def dp_forward_tb(S, D, Cm, ins0, insc, *, q0: int, q1: int, t0: int,
 
     CPU tensors run :func:`dp_forward_tb_plain`; CUDA tensors launch the
     kernel with :func:`launch_plan`'s cluster and mode (a build or launch
-    failure, or a cluster the card cannot place, raises)."""
-    n, q2, t2 = _check(S, D, Cm, ins0, insc, q0, q1, t0, t1)
-    if S.device.type == "cpu":
-        return dp_forward_tb_plain(S, D, Cm, ins0, insc, q0=q0, q1=q1,
-                                   t0=t0, t1=t1, local=local)
-    if S.device.type != "cuda":
-        raise ValueError(f"no kernel for device {S.device}")
-    lib = _build.load().lib
-    plan = launch_plan(S.device, q2, t2, q0, q1, t0, t1)
-    cuts = (ctypes.c_int * len(plan.cuts))(*plan.cuts)
-    H = torch.empty((n, q2, t2), dtype=torch.float32, device=S.device)
-    PQ = torch.empty((n, q2, t2), dtype=torch.int32, device=S.device)
-    PT = torch.empty((n, q2, t2), dtype=torch.int32, device=S.device)
-    with torch.cuda.device(S.device):
-        stream = torch.cuda.current_stream(S.device).cuda_stream
-        err = lib.dp_tb_launch(
-            S.data_ptr(), D.data_ptr(), Cm.data_ptr(), ins0.data_ptr(),
-            insc.data_ptr(), H.data_ptr(), PQ.data_ptr(), PT.data_ptr(),
-            n, q2, t2, q0, q1, t0, t1, int(bool(local)),
-            int(plan.mode == "resident"), plan.cluster,
-            ctypes.cast(cuts, ctypes.c_void_p), plan.smem_bytes, stream)
-    _build.check(err, "dp_tb_launch")
-    dp_forward_tb.launches += 1
-    return H, PQ, PT
+    failure, or a cluster the card cannot place, raises).  Span: ``k7``."""
+    with profiling.span("k7"):
+        n, q2, t2 = _check(S, D, Cm, ins0, insc, q0, q1, t0, t1)
+        if S.device.type == "cpu":
+            return dp_forward_tb_plain(S, D, Cm, ins0, insc, q0=q0, q1=q1,
+                                       t0=t0, t1=t1, local=local)
+        if S.device.type != "cuda":
+            raise ValueError(f"no kernel for device {S.device}")
+        lib = _build.load().lib
+        plan = launch_plan(S.device, q2, t2, q0, q1, t0, t1)
+        cuts = (ctypes.c_int * len(plan.cuts))(*plan.cuts)
+        H = torch.empty((n, q2, t2), dtype=torch.float32, device=S.device)
+        PQ = torch.empty((n, q2, t2), dtype=torch.int32, device=S.device)
+        PT = torch.empty((n, q2, t2), dtype=torch.int32, device=S.device)
+        with torch.cuda.device(S.device):
+            stream = torch.cuda.current_stream(S.device).cuda_stream
+            err = lib.dp_tb_launch(
+                S.data_ptr(), D.data_ptr(), Cm.data_ptr(), ins0.data_ptr(),
+                insc.data_ptr(), H.data_ptr(), PQ.data_ptr(), PT.data_ptr(),
+                n, q2, t2, q0, q1, t0, t1, int(bool(local)),
+                int(plan.mode == "resident"), plan.cluster,
+                ctypes.cast(cuts, ctypes.c_void_p), plan.smem_bytes, stream)
+        _build.check(err, "dp_tb_launch")
+        dp_forward_tb.launches += 1
+        return H, PQ, PT
 
 
 dp_forward_tb.launches = 0

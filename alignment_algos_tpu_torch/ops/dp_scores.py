@@ -51,6 +51,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import _build
 
 NEG = -3.0e38
@@ -333,22 +334,24 @@ def dp_general_ragged(buckets, *, local: bool = False,
 
     CPU tensors run :func:`dp_general_ragged_plain`; CUDA tensors launch
     the kernel once, on the current stream and without a host sync (a
-    build or launch failure raises)."""
-    flags = dict(local=local, zero_head=zero_head, zero_tail=zero_tail,
-                 off=off, del_free=del_free)
-    dev = _check_ragged(buckets)
-    if dev.type == "cpu":
-        return dp_general_ragged_plain(buckets, **flags)
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    # each pair's H scratch (the insertion scan's history), bucket by bucket
-    H = torch.empty((sum(S.numel() for S, *_ in buckets),),
-                    dtype=torch.float32, device=dev)
-    pairs = _ragged_descriptors(buckets, H)
-    out = torch.empty((len(pairs),), dtype=torch.float32, device=dev)
-    _launch(pairs, out, vec=True, **flags)
-    dp_general_ragged.launches += 1
-    return out
+    build or launch failure raises).  Span: ``k3``."""
+    with profiling.span("k3"):
+        flags = dict(local=local, zero_head=zero_head, zero_tail=zero_tail,
+                     off=off, del_free=del_free)
+        dev = _check_ragged(buckets)
+        if dev.type == "cpu":
+            return dp_general_ragged_plain(buckets, **flags)
+        if dev.type != "cuda":
+            raise ValueError(f"no kernel for device {dev}")
+        # each pair's H scratch (the insertion scan's history), bucket by
+        # bucket
+        H = torch.empty((sum(S.numel() for S, *_ in buckets),),
+                        dtype=torch.float32, device=dev)
+        pairs = _ragged_descriptors(buckets, H)
+        out = torch.empty((len(pairs),), dtype=torch.float32, device=dev)
+        _launch(pairs, out, vec=True, **flags)
+        dp_general_ragged.launches += 1
+        return out
 
 
 dp_general_ragged.launches = 0

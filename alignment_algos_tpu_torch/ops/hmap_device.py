@@ -40,6 +40,7 @@ import torch
 from ..scoring.base import (_DEL_FREE_OVERHANG_MODES, DPCosts,
                             affine_deletion_table, ins_zero_flags)
 from ..scoring.hmap_eval import HMAPaliEval
+from ..utils import profiling
 from ..utils.hmath import seq_sum_f32
 from ..utils.params import AlignT, HMAPaliParams
 from . import _build, dp_engine, dp_scores
@@ -276,15 +277,16 @@ def hmap_sim_ragged(q_aa, q_zsse, q_conf, stacks, alpha: float) -> list:
     tensors run :func:`hmap_sim_ragged_plain`; CUDA tensors launch the
     kernel once over every pair of every stack, on the current stream and
     without a host sync, the outputs views into one allocation (a build or
-    launch failure raises)."""
-    stacks = [tuple(st) for st in stacks]
-    dev, *_ = _check_sim(q_aa, q_zsse, q_conf, stacks)
-    if _cuda_stream(dev) is None:
-        return hmap_sim_ragged_plain(q_aa, q_zsse, q_conf, stacks, alpha)
-    plan = _sim_plan(q_aa, q_zsse, q_conf, stacks)
-    _sim_launch(plan, alpha)
-    hmap_sim_ragged.launches += 1
-    return plan.outs
+    launch failure raises).  Span: ``k5``."""
+    with profiling.span("k5"):
+        stacks = [tuple(st) for st in stacks]
+        dev, *_ = _check_sim(q_aa, q_zsse, q_conf, stacks)
+        if _cuda_stream(dev) is None:
+            return hmap_sim_ragged_plain(q_aa, q_zsse, q_conf, stacks, alpha)
+        plan = _sim_plan(q_aa, q_zsse, q_conf, stacks)
+        _sim_launch(plan, alpha)
+        hmap_sim_ragged.launches += 1
+        return plan.outs
 
 
 hmap_sim_ragged.launches = 0
@@ -498,15 +500,17 @@ def hmap_znorm_ragged(Ss, zero_shift: float, *,
     CPU tensors run :func:`hmap_znorm_ragged_plain`; CUDA tensors launch
     the kernel once for every pair of every stack (its stats pass only
     when ``normalize``), on the current stream and without a host sync (a
-    build or launch failure raises)."""
-    Ss = list(Ss)
-    dev = _check_znorm(Ss)
-    if _cuda_stream(dev) is None:
-        return hmap_znorm_ragged_plain(Ss, zero_shift, normalize=normalize)
-    plan = _znorm_plan(Ss)
-    _znorm_launch(plan, zero_shift, normalize)
-    hmap_znorm_ragged.launches += 1
-    return plan.outs
+    build or launch failure raises).  Span: ``k6``."""
+    with profiling.span("k6"):
+        Ss = list(Ss)
+        dev = _check_znorm(Ss)
+        if _cuda_stream(dev) is None:
+            return hmap_znorm_ragged_plain(Ss, zero_shift,
+                                           normalize=normalize)
+        plan = _znorm_plan(Ss)
+        _znorm_launch(plan, zero_shift, normalize)
+        hmap_znorm_ragged.launches += 1
+        return plan.outs
 
 
 hmap_znorm_ragged.launches = 0
@@ -541,28 +545,40 @@ class DeviceLibrary:
     """A resident, length-bucketed template library for HMAP screens:
     ``buckets[t2]`` holds the library indices (``idx``) and, on
     ``device``, ``aa`` (n, t2, 20), ``zsse`` (n, t2, 3), ``conf`` (n, t2),
-    ``D`` (n, 2, t2) gap-init/extension vectors, ``A`` and ``B`` (n, t2)."""
+    ``D`` (n, 2, t2) gap-init/extension vectors, ``A`` and ``B`` (n, t2).
+    Spans: ``hmap.pack`` (the host pack: every template's payload and
+    costs, then each bucket's stacks) and ``hmap.copy`` (each bucket's
+    arrays as contiguous float32 to ``device``).  A bucket's templates are
+    dropped once it is stacked, and its stacks once it is copied, so the
+    host holds about one copy of the library at a time."""
 
     def __init__(self, templates, ev, *, device: torch.device):
         self.templates = templates
         self.device = torch.device(device)
         self.buckets: dict[int, dict] = {}
         packed: dict[int, dict] = {}
-        for idx, t in enumerate(templates):
-            b = packed.setdefault(t.size(), {"idx": [], "seq": [],
-                                             "cost": []})
-            b["idx"].append(idx)
-            b["seq"].append(pack_sequence(t))
-            b["cost"].append(pack_template_costs(ev, t))
-        for t2, b in packed.items():
-            self.buckets[t2] = self._bucket(
-                b["idx"],
-                np.stack([s["aa"] for s in b["seq"]]),
-                np.stack([s["zsse"] for s in b["seq"]]),
-                np.stack([s["conf"] for s in b["seq"]]),
-                np.stack([np.stack([c["gi"], c["ge"]]) for c in b["cost"]]),
-                np.stack([c["A"] for c in b["cost"]]),
-                np.stack([c["B"] for c in b["cost"]]))
+        with profiling.span("hmap.pack"):
+            for idx, t in enumerate(templates):
+                b = packed.setdefault(t.size(), {"idx": [], "seq": [],
+                                                 "cost": []})
+                b["idx"].append(idx)
+                b["seq"].append(pack_sequence(t))
+                b["cost"].append(pack_template_costs(ev, t))
+            stacked: dict[int, tuple] = {}
+            for t2 in list(packed):
+                b = packed.pop(t2)
+                stacked[t2] = (
+                    b["idx"],
+                    np.stack([s["aa"] for s in b["seq"]]),
+                    np.stack([s["zsse"] for s in b["seq"]]),
+                    np.stack([s["conf"] for s in b["seq"]]),
+                    np.stack([np.stack([c["gi"], c["ge"]])
+                              for c in b["cost"]]),
+                    np.stack([c["A"] for c in b["cost"]]),
+                    np.stack([c["B"] for c in b["cost"]]))
+        with profiling.span("hmap.copy"):
+            for t2 in list(stacked):
+                self.buckets[t2] = self._bucket(*stacked.pop(t2))
 
     def _bucket(self, idx, aa, zsse, conf, D, A, B) -> dict:
         dev = self.device
@@ -674,25 +690,31 @@ def screen_hmap_device(query, templates, params, k: int = 10,
     them on the CPU) and one copy of the scores to the host; a longer
     template's bucket goes to K7 (:func:`_scores_k7`).  Returns (scores
     float32 (N,), top-k indices, score descending then index
-    ascending)."""
-    device = torch.device(device)
-    if ev is None:
-        ev = HMAPaliEval(params)
-    if library is None:
-        library = DeviceLibrary(templates, ev, device=device)
-    qt = query_tensors(query, device)
-    cap = dp_scores.vec_max_t2(device)
-    scores = np.zeros(len(library.templates), np.float32)
-    fits, big = [], []
-    for bk, b in zip(screen_buckets(qt, library, params),
-                     library.buckets.values()):
-        (fits if cap is None or bk[0].shape[2] <= cap else big).append(
-            (bk, b["idx"]))
-    if fits:
-        out = dp_scores.dp_general_ragged([bk for bk, _ in fits],
-                                          **ragged_flags(params))
-        scores[[i for _, idx in fits for i in idx]] = out.cpu().numpy()
-    for bk, idx in big:
-        scores[idx] = _scores_k7(bk, params, device)
-    order = np.lexsort((np.arange(len(scores)), -scores))[:k]
-    return scores, order
+    ascending).  Spans: ``hmap.screen``, and beneath it the library's
+    ``hmap.pack`` and ``hmap.copy``, ``hmap.query``, ``k5``, ``k6``,
+    ``k3``, ``hmap.pull`` (the scores to the host) and any ``k7``."""
+    with profiling.span("hmap.screen"):
+        device = torch.device(device)
+        if ev is None:
+            ev = HMAPaliEval(params)
+        if library is None:
+            library = DeviceLibrary(templates, ev, device=device)
+        with profiling.span("hmap.query"):
+            qt = query_tensors(query, device)
+        cap = dp_scores.vec_max_t2(device)
+        scores = np.zeros(len(library.templates), np.float32)
+        fits, big = [], []
+        for bk, b in zip(screen_buckets(qt, library, params),
+                         library.buckets.values()):
+            (fits if cap is None or bk[0].shape[2] <= cap else big).append(
+                (bk, b["idx"]))
+        if fits:
+            out = dp_scores.dp_general_ragged([bk for bk, _ in fits],
+                                              **ragged_flags(params))
+            with profiling.span("hmap.pull"):
+                got = out.cpu().numpy()
+            scores[[i for _, idx in fits for i in idx]] = got
+        for bk, idx in big:
+            scores[idx] = _scores_k7(bk, params, device)
+        order = np.lexsort((np.arange(len(scores)), -scores))[:k]
+        return scores, order

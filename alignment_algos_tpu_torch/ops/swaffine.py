@@ -35,6 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import _build
 
 NEG = -3.0e38
@@ -46,15 +47,24 @@ def to_device(q_codes, t_codes, table, gi: float, ge: float,
     """Host arrays in the JAX package's layout -> the kernels' tensors.
 
     q_codes (Q,) or (B, Q) -> (Q,) or (Q, B) int32; t_codes (B, T) ->
-    (T, B) int32; table -> (A, A) float32; gi, ge -> (2,) float32."""
-    q = np.asarray(q_codes, dtype=np.int32)
-    if q.ndim == 2:
-        q = q.T
-    t = np.asarray(t_codes, dtype=np.int32).T
-    tab = np.asarray(table, dtype=np.float32)
-    gap = np.array([gi, ge], dtype=np.float32)
-    return tuple(torch.from_numpy(np.array(x, order="C")).to(device)
-                 for x in (q, t, tab, gap))
+    (T, B) int32; table -> (A, A) float32; gi, ge -> (2,) float32.  Spans:
+    ``to_device``, and beneath it ``to_device.layout`` (the host
+    transposes) and ``to_device.copy``, which counts ``h2d_bytes`` to a
+    card."""
+    with profiling.span("to_device"):
+        with profiling.span("to_device.layout"):
+            q = np.asarray(q_codes, dtype=np.int32)
+            if q.ndim == 2:
+                q = q.T
+            t = np.asarray(t_codes, dtype=np.int32).T
+            tab = np.asarray(table, dtype=np.float32)
+            gap = np.array([gi, ge], dtype=np.float32)
+            host = [np.array(x, order="C") for x in (q, t, tab, gap)]
+        with profiling.span("to_device.copy"):
+            if (profiling.recording()
+                    and torch.device(device).type == "cuda"):
+                profiling.count("h2d_bytes", sum(x.nbytes for x in host))
+            return tuple(torch.from_numpy(x).to(device) for x in host)
 
 
 # ---------------------------------------------------------------- producers
@@ -256,17 +266,23 @@ def sw_affine_scores(q_codes: torch.Tensor, t_codes: torch.Tensor,
 
     Exact for every gap value, fractional ones included, so the TPU
     package's integer-gap gate (``swscan.supported``) has no counterpart.
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
-    nq, nt, b, _ = _check_inputs(q_codes, t_codes, table, gap)
-    if t_codes.device.type == "cpu":
-        return sw_affine_scores_plain(
-            skewed_similarity(q_codes, t_codes, table), gap, q=nq, t=nt)
-    if t_codes.device.type != "cuda":
-        raise ValueError(f"no kernel for device {t_codes.device}")
-    out = torch.empty((b,), dtype=torch.float32, device=t_codes.device)
-    _launch("sw_scores_launch", q_codes, t_codes, table, gap, nt, b, out)
-    sw_affine_scores.launches += 1
-    return out
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    Spans: ``k1``, counting ``q`` and the ``cells`` launched (Q x T x B),
+    and beneath it ``k1.check``, the range check's host sync."""
+    with profiling.span("k1"):
+        with profiling.span("k1.check"):
+            nq, nt, b, _ = _check_inputs(q_codes, t_codes, table, gap)
+        profiling.count("q", nq)
+        profiling.count("cells", nq * nt * b)
+        if t_codes.device.type == "cpu":
+            return sw_affine_scores_plain(
+                skewed_similarity(q_codes, t_codes, table), gap, q=nq, t=nt)
+        if t_codes.device.type != "cuda":
+            raise ValueError(f"no kernel for device {t_codes.device}")
+        out = torch.empty((b,), dtype=torch.float32, device=t_codes.device)
+        _launch("sw_scores_launch", q_codes, t_codes, table, gap, nt, b, out)
+        sw_affine_scores.launches += 1
+        return out
 
 
 sw_affine_scores.launches = 0
@@ -279,21 +295,24 @@ def sw_affine_tb(q_codes: torch.Tensor, t_codes: torch.Tensor,
     Returns (tb (Q+T-1, Q, B) int8 with tb[i+j, i, b] the code of cell
     (i, j), m (Q, B) float32 per-row max, dat (Q, B) int32 anti-diagonal
     of that max).  CPU tensors run the plain version; CUDA tensors launch
-    the kernel."""
-    nq, nt, b, _ = _check_inputs(q_codes, t_codes, table, gap)
-    if t_codes.device.type == "cpu":
-        return sw_affine_tb_plain(
-            skewed_similarity(q_codes, t_codes, table), gap, q=nq, t=nt)
-    if t_codes.device.type != "cuda":
-        raise ValueError(f"no kernel for device {t_codes.device}")
-    dev = t_codes.device
-    # zeroed: the kernel writes only the valid cells of each anti-diagonal
-    tb = torch.zeros((nq + nt - 1, nq, b), dtype=torch.int8, device=dev)
-    m = torch.empty((nq, b), dtype=torch.float32, device=dev)
-    dat = torch.empty((nq, b), dtype=torch.int32, device=dev)
-    _launch("sw_tb_launch", q_codes, t_codes, table, gap, nt, b, tb, m, dat)
-    sw_affine_tb.launches += 1
-    return tb, m, dat
+    the kernel.  Span: ``k2``."""
+    with profiling.span("k2"):
+        nq, nt, b, _ = _check_inputs(q_codes, t_codes, table, gap)
+        if t_codes.device.type == "cpu":
+            return sw_affine_tb_plain(
+                skewed_similarity(q_codes, t_codes, table), gap, q=nq, t=nt)
+        if t_codes.device.type != "cuda":
+            raise ValueError(f"no kernel for device {t_codes.device}")
+        dev = t_codes.device
+        # zeroed: the kernel writes only the valid cells of each
+        # anti-diagonal
+        tb = torch.zeros((nq + nt - 1, nq, b), dtype=torch.int8, device=dev)
+        m = torch.empty((nq, b), dtype=torch.float32, device=dev)
+        dat = torch.empty((nq, b), dtype=torch.int32, device=dev)
+        _launch("sw_tb_launch", q_codes, t_codes, table, gap, nt, b, tb, m,
+                dat)
+        sw_affine_tb.launches += 1
+        return tb, m, dat
 
 
 sw_affine_tb.launches = 0
@@ -487,27 +506,28 @@ def sw_decode(tb: torch.Tensor, m: torch.Tensor, dat: torch.Tensor, *,
     CPU tensors run the plain version; CUDA tensors launch the kernel
     (``csrc/sw_decode.cu``) in the mode of ``plan`` (default
     :func:`k8_plan`'s; a plan made for another shape raises), with no host
-    sync."""
-    _check_decode(tb, m, dat, q, t, b)
-    shape = (q, t, b, *tb.shape)
-    if plan is None:
-        plan = k8_plan(*shape)
-    elif plan != k8_plan(*shape, mode=plan.mode):
-        raise ValueError(f"K8: {plan} is not the plan of q, t, b = {q}, {t}, "
-                         f"{b} over tb {tuple(tb.shape)}")
-    if tb.device.type == "cpu":
-        return decode_tb_plain(tb, m, dat, q=q, t=t, b=b)
-    if tb.device.type != "cuda":
-        raise ValueError(f"no kernel for device {tb.device}")
-    dev = tb.device
-    max_steps = q + t + 2
-    scores = torch.empty((b,), dtype=torch.float32, device=dev)
-    # the kernel writes every entry: a match's (i, j), else -1
-    rec_i = torch.empty((max_steps, b), dtype=torch.int32, device=dev)
-    rec_j = torch.empty((max_steps, b), dtype=torch.int32, device=dev)
-    _decode_launch(tb, m, dat, scores, rec_i, rec_j, q, t, b, plan)
-    sw_decode.launches += 1
-    return scores, rec_i, rec_j
+    sync.  Span: ``k8``."""
+    with profiling.span("k8"):
+        _check_decode(tb, m, dat, q, t, b)
+        shape = (q, t, b, *tb.shape)
+        if plan is None:
+            plan = k8_plan(*shape)
+        elif plan != k8_plan(*shape, mode=plan.mode):
+            raise ValueError(f"K8: {plan} is not the plan of q, t, b = {q}, "
+                             f"{t}, {b} over tb {tuple(tb.shape)}")
+        if tb.device.type == "cpu":
+            return decode_tb_plain(tb, m, dat, q=q, t=t, b=b)
+        if tb.device.type != "cuda":
+            raise ValueError(f"no kernel for device {tb.device}")
+        dev = tb.device
+        max_steps = q + t + 2
+        scores = torch.empty((b,), dtype=torch.float32, device=dev)
+        # the kernel writes every entry: a match's (i, j), else -1
+        rec_i = torch.empty((max_steps, b), dtype=torch.int32, device=dev)
+        rec_j = torch.empty((max_steps, b), dtype=torch.int32, device=dev)
+        _decode_launch(tb, m, dat, scores, rec_i, rec_j, q, t, b, plan)
+        sw_decode.launches += 1
+        return scores, rec_i, rec_j
 
 
 def _decode_launch(tb, m, dat, scores, rec_i, rec_j, q: int, t: int, b: int,
@@ -532,11 +552,13 @@ def decode_local_tracebacks_device(tb: torch.Tensor, m: torch.Tensor,
                                    nb: int | None = None):
     """Decode on the tensors' device (K8, or its plain version on the CPU),
     then extract paths on the host; the same (scores, paths) as
-    :func:`decode_local_tracebacks`."""
+    :func:`decode_local_tracebacks`.  The pull and the paths are the span
+    ``cluster.paths`` (``aat_screen`` clusters its hits through here)."""
     b = m.shape[1] if nb is None else nb
     scores, rec_i, rec_j = sw_decode(tb, m, dat, q=q, t=t, b=b)
-    return (scores.cpu().numpy(),
-            _paths(rec_i.cpu().numpy(), rec_j.cpu().numpy(), b))
+    with profiling.span("cluster.paths"):
+        return (scores.cpu().numpy(),
+                _paths(rec_i.cpu().numpy(), rec_j.cpu().numpy(), b))
 
 
 def sw_affine_tb_batch(q_codes, t_codes, table, gi: float, ge: float, *,

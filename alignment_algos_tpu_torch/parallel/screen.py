@@ -25,6 +25,7 @@ import torch
 
 from ..ops import swaffine
 from ..ops.swaffine import to_device  # counterpart of the JAX ``_put``
+from ..utils import profiling
 from ..utils.torchenv import device_from_env
 
 __all__ = ["Mesh", "default_mesh", "grid_mesh", "merge_topk",
@@ -111,13 +112,10 @@ def merge_topk(scores: np.ndarray, idx: np.ndarray, k: int):
             np.take_along_axis(idx, o, -1))
 
 
-def _screen_step(q_codes: torch.Tensor, t_codes: torch.Tensor,
-                 table: torch.Tensor, gap: torch.Tensor, *, k: int):
-    """Scores of one library on its device (K1 on CUDA tensors, its plain
-    version on CPU ones), then the top k (score desc, ties by index asc: a
-    stable sort of the negated scores; ``torch.topk`` promises no tie
-    order)."""
-    scores = swaffine.sw_affine_scores(q_codes, t_codes, table, gap)
+def _top(scores: torch.Tensor, k: int):
+    """The top k of ``scores`` on their device (score desc, ties by index
+    asc: a stable sort of the negated scores; ``torch.topk`` promises no
+    tie order)."""
     order = torch.sort(-scores, stable=True).indices[:k]
     return scores[order], order
 
@@ -134,10 +132,13 @@ def shard_candidates(q_codes, t_codes, table, gi: float, ge: float, k: int,
             continue
         q, t, tab, gap = to_device(q_codes, t_codes[lo:hi], table, gi, ge,
                                    dev)
-        s, i = _screen_step(q, t, tab, gap, k=min(k, hi - lo))
+        s, i = _top(swaffine.sw_affine_scores(q, t, tab, gap),
+                    min(k, hi - lo))
         pending.append((s, i, lo))
-    return (np.concatenate([s.cpu().numpy() for s, _, _ in pending]),
-            np.concatenate([i.cpu().numpy() + lo for _, i, lo in pending]))
+    with profiling.span("screen.topk"):
+        return (np.concatenate([s.cpu().numpy() for s, _, _ in pending]),
+                np.concatenate([i.cpu().numpy() + lo
+                                for _, i, lo in pending]))
 
 
 def screen_library(q_codes: np.ndarray, t_codes: np.ndarray,
@@ -151,20 +152,25 @@ def screen_library(q_codes: np.ndarray, t_codes: np.ndarray,
     K1 launch on ``device`` (None = :func:`device_from_env`); else the
     library split over the mesh's entries (:func:`shard_bounds`), one K1
     launch per shard on its entry's device, the candidates merged by
-    :func:`merge_topk`."""
-    t_codes = np.asarray(t_codes, dtype=np.int32)
-    k = min(k, t_codes.shape[0])
-    if mesh is not None:
-        devices = list(mesh.devices.flat)
-        scores, idx = merge_topk(*shard_candidates(
-            q_codes, t_codes, table, gi, ge, k, devices,
-            shard_bounds(t_codes.shape[0], len(devices))), k)
-        return scores.astype(np.float32), idx.astype(np.int32)
-    device = device_from_env() if device is None else torch.device(device)
-    q, t, tab, gap = to_device(q_codes, t_codes, table, gi, ge, device)
-    scores, idx = _screen_step(q, t, tab, gap, k=k)
-    return (scores.cpu().numpy().astype(np.float32),
-            idx.cpu().numpy().astype(np.int32))
+    :func:`merge_topk`.  Spans: ``screen.library``, and beneath it
+    ``to_device``, ``k1`` and ``screen.topk`` (the sort and the pull of
+    the scores; with a mesh, the pull)."""
+    with profiling.span("screen.library"):
+        t_codes = np.asarray(t_codes, dtype=np.int32)
+        k = min(k, t_codes.shape[0])
+        if mesh is not None:
+            devices = list(mesh.devices.flat)
+            scores, idx = merge_topk(*shard_candidates(
+                q_codes, t_codes, table, gi, ge, k, devices,
+                shard_bounds(t_codes.shape[0], len(devices))), k)
+            return scores.astype(np.float32), idx.astype(np.int32)
+        device = device_from_env() if device is None else torch.device(device)
+        q, t, tab, gap = to_device(q_codes, t_codes, table, gi, ge, device)
+        scores = swaffine.sw_affine_scores(q, t, tab, gap)
+        with profiling.span("screen.topk"):
+            scores, idx = _top(scores, k)
+            return (scores.cpu().numpy().astype(np.float32),
+                    idx.cpu().numpy().astype(np.int32))
 
 
 def _block_scores(q_codes: np.ndarray, t_codes: np.ndarray, table, gi, ge,

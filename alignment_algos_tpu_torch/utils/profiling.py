@@ -1,30 +1,137 @@
-"""Profiling hooks on ``torch.profiler`` (counterpart of
-``alignment_algos_tpu/utils/profiling.py``).
+"""The port's tracing: spans and counters inside the program, on
+``torch.profiler``.
 
-Usage:
-    with profiling.maybe_trace():          # no-op unless AAT_TRACE_DIR set
-        scores = engine(...)
+A span names one stage of the program's work where it happens::
 
-    with profiling.annotate("sw_affine"):  # named region in the trace
-        ...
+    with profiling.span("fasta.encode"):
+        codes = encode_library(seqs, index, pad_code)
+        profiling.count("residues", n)     # onto the innermost open span
 
-    rate = profiling.cups(cells, seconds)  # cell updates / second
+Spans record only while a ``torch.profiler`` session records in the
+process: a benchmark's traced window, or a run under ``AAT_TRACE_DIR``,
+where every tool of the port traces its whole process
+(``utils.torchenv.maybe_start_trace``) and writes a Chrome trace viewable
+in Perfetto.  Off, :func:`span` returns one shared object that does
+nothing, and :func:`count` returns at once.  On, a span opens the range
+``aat.<name>`` in the profiler, on the device trace's own timeline and
+clock, and keeps a :class:`Record` in memory (:func:`records`) with its
+host clock (``time.perf_counter``), its parent and its counts.  A span
+never synchronizes the device: a kernel belongs to the range that
+launched it, and its device time is the profiler's to attribute.
 
-Set ``AAT_TRACE_DIR=/tmp/trace`` to write a Chrome trace (host ops, and
-the card's kernels where a card is present) viewable in Perfetto; every
-tool of the port also traces its whole process then
-(``utils.torchenv.maybe_start_trace``).
+A counter's value is one the code has at hand (a shape, a size); one that
+takes work to compute is computed only under :func:`recording`.
 """
 
 from __future__ import annotations
 
-import contextlib
+import itertools
 import os
+import threading
 import time
+from dataclasses import dataclass, field
 
 import torch
 
 ENV = "AAT_TRACE_DIR"
+PREFIX = "aat."
+
+
+@dataclass
+class Record:
+    """One span: ``parent`` is the id of the span open around it on its
+    thread (None for a root); ``end`` is None while it is open."""
+    name: str
+    id: int
+    parent: int | None
+    start: float
+    end: float | None = None
+    counts: dict = field(default_factory=dict)
+
+    @property
+    def seconds(self) -> float:
+        return self.end - self.start
+
+
+_records: list[Record] = []
+_ids = itertools.count()
+_local = threading.local()      # .open: this thread's open spans
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` session records in this process."""
+    return torch.autograd._profiler_enabled()
+
+
+class _Off:
+    """The span while nothing records: enters and exits, nothing more."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _On:
+    __slots__ = ("record", "_range")
+
+    def __init__(self, name: str, counts: dict):
+        self.record = Record(name, next(_ids), None, 0.0, counts=counts)
+        self._range = torch.profiler.record_function(PREFIX + name)
+
+    def __enter__(self):
+        stack = _open()
+        if stack:
+            self.record.parent = stack[-1].id
+        stack.append(self.record)
+        _records.append(self.record)
+        self.record.start = time.perf_counter()
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        self.record.end = time.perf_counter()
+        _open().pop()
+        return False
+
+
+def _open() -> list:
+    stack = getattr(_local, "open", None)
+    if stack is None:
+        stack = _local.open = []
+    return stack
+
+
+def span(name: str, **counts):
+    """A context manager over one stage named ``name``, with ``counts``
+    to start its counters; see the module docstring."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _On(name, counts)
+
+
+def count(key: str, n) -> None:
+    """Add ``n`` to counter ``key`` of the innermost open span; nothing
+    while nothing records."""
+    if not torch.autograd._profiler_enabled():
+        return
+    stack = getattr(_local, "open", None)
+    if stack:
+        counts = stack[-1].counts
+        counts[key] = counts.get(key, 0) + n
+
+
+def records() -> list[Record]:
+    """Every span kept so far in this process, in the order they opened
+    (open ones with ``end`` None); nothing is drained."""
+    return list(_records)
 
 
 def profiler() -> "torch.profiler.profile":
@@ -38,62 +145,11 @@ def profiler() -> "torch.profiler.profile":
     return torch.profiler.profile(activities=acts, acc_events=True)
 
 
-def export(prof, logdir: str, tag: str) -> str:
+def export(prof, logdir: str) -> str:
     """Write ``prof``'s Chrome trace into ``logdir`` (made if missing) as
-    ``aat_<tag>_<pid>_<ns>.pt.trace.json``; returns its path."""
+    ``aat_process_<pid>_<ns>.pt.trace.json``; returns its path."""
     os.makedirs(logdir, exist_ok=True)
-    path = os.path.join(logdir, f"aat_{tag}_{os.getpid()}_"
+    path = os.path.join(logdir, f"aat_process_{os.getpid()}_"
                                 f"{time.time_ns()}.pt.trace.json")
     prof.export_chrome_trace(path)
     return path
-
-
-@contextlib.contextmanager
-def maybe_trace(logdir: str | None = None):
-    """A trace of the block if a directory is given or AAT_TRACE_DIR is
-    set (yields the directory), else nothing (yields None)."""
-    logdir = logdir or os.environ.get(ENV, "")
-    if not logdir:
-        yield None
-        return
-    with profiler() as prof:
-        yield logdir
-    export(prof, logdir, "block")
-
-
-def annotate(name: str):
-    """Named region that shows up on the trace timeline."""
-    return torch.profiler.record_function(name)
-
-
-def cups(cells: int, seconds: float) -> float:
-    """Cell updates per second — the DP throughput metric (BASELINE.md)."""
-    return cells / seconds if seconds > 0 else float("inf")
-
-
-class Stopwatch:
-    """Reference-style wall-clock pair with a CUPS readout for DP engines.
-
-    Given a CUDA device it reads CUDA events recorded on that device's
-    current stream, so :meth:`seconds` waits for and includes the work
-    queued there; otherwise it reads the host clock."""
-
-    def __init__(self, device: torch.device | None = None) -> None:
-        self.device = None if device is None else torch.device(device)
-        if self.device is not None and self.device.type == "cuda":
-            self._start = torch.cuda.Event(enable_timing=True)
-            self._start.record(torch.cuda.current_stream(self.device))
-        else:
-            self._start = None
-            self.t0 = time.perf_counter()
-
-    def seconds(self) -> float:
-        if self._start is None:
-            return time.perf_counter() - self.t0
-        stop = torch.cuda.Event(enable_timing=True)
-        stop.record(torch.cuda.current_stream(self.device))
-        stop.synchronize()
-        return self._start.elapsed_time(stop) / 1e3
-
-    def cups(self, cells: int) -> float:
-        return cups(cells, self.seconds())

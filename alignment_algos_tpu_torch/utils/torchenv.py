@@ -4,7 +4,8 @@
 package: ``cuda`` (the default) or ``cpu``.  Asking for ``cuda`` where no
 card is visible raises: the port never drops to the CPU on its own.
 ``AAT_TRACE_DIR`` makes every tool trace its whole process
-(:func:`maybe_start_trace`).
+(:func:`maybe_start_trace`): the card's kernels and copies, and the
+program's own ``aat.`` ranges (``utils.profiling.span``).
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ _trace = []     # the whole-process profiler, once started
 
 def maybe_start_trace() -> None:
     """When ``AAT_TRACE_DIR`` is set, start a whole-process profiler
-    (``utils.profiling``) once; it stops at interpreter exit and writes its
-    trace there (counterpart of ``jaxenv._maybe_start_trace``).  The stop
+    (``utils.profiling``) once; while it records, the program's spans
+    record too, and at interpreter exit it stops and writes its trace
+    there (counterpart of ``jaxenv._maybe_start_trace``).  The stop
     is registered after torch's own exit handlers, so it runs before
     them, while the card is still up."""
     from . import profiling
@@ -51,4 +53,4 @@ def _stop_trace(prof, logdir: str) -> None:
     from . import profiling
 
     prof.stop()
-    profiling.export(prof, logdir, "process")
+    profiling.export(prof, logdir)

@@ -35,7 +35,7 @@ AA = "ARNDCQEGHILKMFPSTWYV"
 SCANNED = sorted(os.path.relpath(p, ROOT) for p in glob.glob(
     os.path.join(PORT, "**", "*.py"), recursive=True)) + [
     "chip_smoke.py", "tools/torch_k3_bench.py",
-    "tools/torch_stage_profile.py", "tools/torch_sw_bench.py"]
+    "tools/torch_span_trace.py", "tools/torch_sw_bench.py"]
 
 
 def _absolute_imports(path: str) -> list[str]:
