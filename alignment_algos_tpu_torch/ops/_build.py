@@ -52,6 +52,7 @@ SIGNATURES = {
     "hmap_sim_launch": (_P, _I, _I, _P, _I, _I, _I, _F, _I, _I, _P),
     "hmap_znorm_launch": (_P, _P, _I, _I, _F, _I, _P),
     "hmap_znorm_apply_elems": (),
+    "transpose_i32_launch": (_P, _P, _I, _I, _P),
 }
 
 

@@ -26,6 +26,9 @@ Kernel input layout (see :func:`to_device`): query codes (Q,) int32 for one
 query shared by all lanes, or (Q, B) for one query per lane; template codes
 (T, B) int32; substitution table (A, A) float32; gap (2,) float32
 ``[gi, ge]``.  Unlike the TPU package nothing is padded to tile multiples.
+On a card :func:`to_device` writes the (T, B) and (Q, B) codes with a
+fourth kernel, :func:`transpose_codes` (``csrc/layout.cu``), from the host's
+(B, T) and (B, Q) copied as they stand.
 """
 
 from __future__ import annotations
@@ -47,24 +50,59 @@ def to_device(q_codes, t_codes, table, gi: float, ge: float,
     """Host arrays in the JAX package's layout -> the kernels' tensors.
 
     q_codes (Q,) or (B, Q) -> (Q,) or (Q, B) int32; t_codes (B, T) ->
-    (T, B) int32; table -> (A, A) float32; gi, ge -> (2,) float32.  Spans:
-    ``to_device``, and beneath it ``to_device.layout`` (the host
-    transposes) and ``to_device.copy``, which counts ``h2d_bytes`` to a
-    card."""
+    (T, B) int32; table -> (A, A) float32; gi, ge -> (2,) float32.  To a
+    card the 2-D codes are copied as they stand (no host copy of a
+    C-contiguous int32 array) and :func:`transpose_codes` lays them out
+    there; elsewhere numpy transposes them on the host.  Spans:
+    ``to_device``, and beneath it ``to_device.layout`` (the host layout,
+    and on a card again after the copy: the transposes' launches) and
+    ``to_device.copy``, which counts ``h2d_bytes`` to a card."""
+    card = torch.device(device).type == "cuda"
     with profiling.span("to_device"):
         with profiling.span("to_device.layout"):
             q = np.asarray(q_codes, dtype=np.int32)
-            if q.ndim == 2:
-                q = q.T
-            t = np.asarray(t_codes, dtype=np.int32).T
+            t = np.asarray(t_codes, dtype=np.int32)
             tab = np.asarray(table, dtype=np.float32)
             gap = np.array([gi, ge], dtype=np.float32)
-            host = [np.array(x, order="C") for x in (q, t, tab, gap)]
+            if card:
+                host = [np.ascontiguousarray(x) for x in (q, t, tab, gap)]
+            else:
+                host = [np.array(x, order="C")
+                        for x in (q.T, t.T, tab, gap)]
         with profiling.span("to_device.copy"):
-            if (profiling.recording()
-                    and torch.device(device).type == "cuda"):
+            if profiling.recording() and card:
                 profiling.count("h2d_bytes", sum(x.nbytes for x in host))
-            return tuple(torch.from_numpy(x).to(device) for x in host)
+            out = [torch.from_numpy(x).to(device) for x in host]
+        if card:
+            with profiling.span("to_device.layout"):
+                # the (B, T) staging tensors go once their launches queue
+                out[:2] = [transpose_codes(x) if x.dim() == 2 else x
+                           for x in out[:2]]
+        return tuple(out)
+
+
+def transpose_codes(x: torch.Tensor) -> torch.Tensor:
+    """(R, C) int32 on a card -> its (C, R) transpose, contiguous: one
+    launch of ``csrc/layout.cu``'s ``transpose_i32_kernel`` on the current
+    stream (none when R or C is 0).  Elsewhere :func:`to_device`
+    transposes on the host."""
+    if (x.device.type != "cuda" or x.dtype != torch.int32 or x.dim() != 2
+            or not x.is_contiguous()):
+        raise ValueError(f"expected a contiguous 2-D int32 CUDA tensor, "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    rows, cols = x.shape
+    out = torch.empty((cols, rows), dtype=torch.int32, device=x.device)
+    if out.numel():
+        with torch.cuda.device(x.device):
+            err = _build.load().lib.transpose_i32_launch(
+                x.data_ptr(), out.data_ptr(), rows, cols,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(err, "transpose_i32_launch")
+        transpose_codes.launches += 1
+    return out
+
+
+transpose_codes.launches = 0
 
 
 # ---------------------------------------------------------------- producers

@@ -134,6 +134,7 @@ AA = "ARNDCQEGHILKMFPSTWYV"
 K8_MODES, K8_WIDE = ("windowed", "lane"), 1024
 K1_SRC = K2_SRC = "alignment_algos_tpu_torch/ops/csrc/sw_gotoh.cu"
 K8_SRC = "alignment_algos_tpu_torch/ops/csrc/sw_decode.cu"
+LAYOUT_SRC = "alignment_algos_tpu_torch/ops/csrc/layout.cu"
 K3_SRC = "alignment_algos_tpu_torch/ops/csrc/dp_general.cu"
 K56_SRC = "alignment_algos_tpu_torch/ops/csrc/hmap_device.cu"
 K7_SRC = "alignment_algos_tpu_torch/ops/csrc/dp_traceback.cu"
@@ -341,7 +342,14 @@ def check_kernels(sw, q, t, table, pad, dev):
             f"plain, shared query and one per lane, and K8 on K2's codes "
             f"(both modes) equals plain and the numpy decode, gaps {gi}/{ge}")
 
+        n = sw.transpose_codes.launches
         qd, td, tab, gap = sw.to_device(q, t, table, gi, ge, dev)
+        assert sw.transpose_codes.launches == n + 1
+        for g, w in zip((qd, td, tab, gap),
+                        sw.to_device(q, t, table, gi, ge, "cpu")):
+            assert torch.equal(g.cpu(), w), "card layout != host layout"
+        log(f"to_device's layout on the card (one transpose launch) equals "
+            f"the host route's at {td.shape[1]} x {td.shape[0]}")
         full = sw.sw_affine_scores(qd, td, tab, gap)
         for lo in range(0, td.shape[1], CHUNK):
             k1_vs_plain(qd, td[:, lo:lo + CHUNK], tab, gap,
@@ -412,6 +420,40 @@ def check_kernels(sw, q, t, table, pad, dev):
              "k2": (err["k2"], k2_ms, k2_plain_ms),
              "k8": (err["k8"], k8_ms, k8_plain_ms)},
             sum(walks["steps"]), k8_extra)
+
+
+def time_layout(sw, t, dev):
+    """The (B, T) -> (T, B) layout of the library's codes ``t`` as
+    ``to_device`` writes it on the card: ``transpose_i32_kernel``'s launch
+    alone on a preallocated output, checked against numpy, beside the host
+    route's numpy transpose (host clock) and PyTorch's own transpose copy
+    on the card, ``x.t().contiguous()`` (a yardstick; not on any path).
+    Returns (max_abs_err, ms, plain_ms) and library_ms."""
+    import torch
+    b, n = t.shape
+    src = torch.from_numpy(np.ascontiguousarray(t, dtype=np.int32)).to(dev)
+    out = torch.empty((n, b), dtype=torch.int32, device=dev)
+    lib = sw._build.load().lib
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        sw._build.check(lib.transpose_i32_launch(
+            src.data_ptr(), out.data_ptr(), b, n, stream),
+            "transpose_i32_launch")
+
+    ms = cuda_ms(launch, 20)
+    assert torch.equal(out.cpu(), torch.from_numpy(t.T.astype(np.int32)))
+    library_ms = cuda_ms(lambda: src.t().contiguous(), 20)
+    assert torch.equal(src.t().contiguous(), out)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        np.array(np.asarray(t, dtype=np.int32).T, order="C")
+    plain_ms = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"layout: transpose_i32_kernel {ms:.4f} ms launch alone at {b} x {n}"
+        f", equal to numpy's; the host route's numpy transpose "
+        f"{plain_ms:.3f} ms; x.t().contiguous() on the card {library_ms:.4f}"
+        f" ms")
+    return (0.0, ms, plain_ms), library_ms
 
 
 def k8_modes_ms(sw, tb, m, dat, dec: dict, tag: str) -> dict:
@@ -1590,6 +1632,8 @@ def main() -> int:
         assert t.shape == (N_LIB, T_MAX), t.shape
         timing, k8_reads, k8_extra = check_kernels(sw, q, t, table, pad,
                                                    dev)
+        timing["layout"], layout_library_ms = time_layout(sw, t, dev)
+        layout_bytes = 2 * 4 * t.size   # each element read once, written once
 
         # host set-up outside the timed runs: the alignment-distance code
         # builds its native library at first use
@@ -1610,7 +1654,11 @@ def main() -> int:
                 "--ckpt", os.path.join(d, "state.npz"),
                 "--chunk_size", str(CHUNK)],
         }
-        counters = (sw.sw_affine_scores, sw.sw_affine_tb, sw.sw_decode)
+        # the transpose: the library's codes (one launch a checkpoint
+        # chunk) and the hits' queries and templates for K2
+        layouts = dict(zip(runs, (3, 3, -(-N_LIB // CHUNK) + 2)))
+        counters = (sw.sw_affine_scores, sw.sw_affine_tb, sw.sw_decode,
+                    sw.transpose_codes)
         for fn in counters:
             fn.launches = 0
         outs = {}
@@ -1620,6 +1668,8 @@ def main() -> int:
             after = [fn.launches for fn in counters]
             assert all(a > b for a, b in zip(after, before)), \
                 f"run {name}: kernel launches {before} -> {after}"
+            assert after[3] - before[3] == layouts[name], \
+                f"run {name}: transpose launches {before[3]} -> {after[3]}"
             rows = rows_of(out)
             assert len(rows) == TOP_K, out
             assert {r[3] for r in rows[:N_HOMOLOGS]} == set(homologs), rows
@@ -1630,12 +1680,12 @@ def main() -> int:
             outs[name] = out
             log(f"run {name}: wall {wall:.3f} s, {cells / wall:.4g} cells/s "
                 f"({cells} cells; K1 +{after[0] - before[0]}, "
-                f"K2 +{after[1] - before[1]}, K8 +{after[2] - before[2]} "
-                f"launches) on {card}")
+                f"K2 +{after[1] - before[1]}, K8 +{after[2] - before[2]}, "
+                f"transpose +{after[3] - before[3]} launches) on {card}")
             log("  top hits: " + ", ".join(f"{r[3]}={r[1]}" for r in rows))
         a, c = list(outs.values())[0], list(outs.values())[2]
         assert rows_of(a) == rows_of(c), "checkpointed run differs from (a)"
-        launches = dict(zip(("k1", "k2", "k8"),
+        launches = dict(zip(("k1", "k2", "k8", "layout"),
                             (fn.launches for fn in counters)))
 
         # phase 5: the exact profile screen
@@ -1688,7 +1738,7 @@ def main() -> int:
     # each kernel's bound at the shape it was timed at; no single PyTorch
     # call computes any of these functions (dependent DP recurrences, a
     # serial chain the parity contract fixes, a traceback walk), so
-    # library_ms is null
+    # library_ms is null; the layout's is x.t().contiguous() (time_layout)
     a = table.shape[0]
     cells = Q_LEN * T_MAX * N_LIB
     k1_bound = bound(4 * (Q_LEN + T_MAX * N_LIB + a * a + 2 + N_LIB),
@@ -1737,9 +1787,10 @@ def main() -> int:
     steps = Q_LEN + T_MAX + 2
     k8_bound = bound(k8_reads + 4 * (Q_LEN * TOP_K + TOP_K) + 4 * TOP_K
                      + 8 * steps * TOP_K, Q_LEN * TOP_K)
+    layout_bound = bound(layout_bytes, 0)
     bounds = {"k1": k1_bound, "k2": k2_bound, "k3": k3_bound,
               "k5": k5_bound, "k6": k6_bound, "k7": k7_bound,
-              "k8": k8_bound}
+              "k8": k8_bound, "layout": layout_bound}
     for k, bd in bounds.items():
         log(f"{k}: bound {bd['bound_ms']:.6f} ms by {bd['bound_by']} "
             f"({bd['bytes']:.4g} bytes, {bd['ops_f32']:.4g} float32 and "
@@ -1784,6 +1835,10 @@ def main() -> int:
          "replaces": "alignment_algos_tpu/ops/swaffine.py:387",
          **row("k8"), "shape": f"{Q_LEN}x{T_MAX}x{TOP_K}",
          "walk_reads": k8_reads, **k8_extra},
+        {"name": "transpose_i32_kernel (layout)", "route": "cuda",
+         "source": LAYOUT_SRC, "replaces": None,
+         **row("layout"), "library_ms": layout_library_ms,
+         "shape": f"{N_LIB}x{T_MAX}"},
     ]
     log(json.dumps({"profiles_run": prof_run}))
     log(json.dumps({"dp_runs": dp_runs, "nalign_build_split_s": {

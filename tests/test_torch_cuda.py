@@ -7,7 +7,10 @@ equal the host ``build_costs`` S; a profile screen with a template past
 K3's shared-memory cap scores it on K7, equal to ``dp_ref``, on the
 device route and on the host-build route; the sharded library screen and
 the grid on meshes that name the card several times; K8
-(the traceback decode) equals its plain version and the numpy decode.
+(the traceback decode) equals its plain version and the numpy decode;
+``to_device``'s layout on the card (the transpose kernel) equals the host
+route's bit for bit, and K1 and K2 on it equal their plain versions on the
+host route's.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports only the port (no
 JAX, nothing of the JAX package), so it runs where JAX is not installed:
@@ -179,6 +182,95 @@ def test_wrapper_counts_launches_and_rejects_bad_input(cuda):
         swaffine.sw_affine_scores(qd, td.long(), tab, gap)
     with pytest.raises(ValueError):
         swaffine.sw_affine_scores(qd, td + 30, tab, gap)
+
+
+# ------------------------------- the codes' layout on the card (to_device)
+
+LAYOUTS = [(1, 1), (7, 33), (33, 32), (65, 4132), (1000, 1025)]
+
+
+def _same_tensors(got, want):
+    """Card tensors against the host route's: dtype, shape, contiguity and
+    every bit."""
+    for g, w in zip(got, want, strict=True):
+        assert g.is_cuda and g.is_contiguous()
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("b,t", LAYOUTS)
+@pytest.mark.parametrize("shared_query", [True, False])
+def test_to_device_equals_the_host_transpose(cuda, b, t, shared_query):
+    rng = np.random.default_rng(b * t)
+    qc = rng.integers(0, 21, 40 if shared_query else (b, 40))
+    tc = rng.integers(0, 21, (b, t)).astype(np.int32)
+    table = rng.standard_normal((21, 21)).astype(np.float32)
+    n = swaffine.transpose_codes.launches
+    got = swaffine.to_device(qc, tc, table, 4.73, 0.34, cuda)
+    torch.cuda.synchronize()
+    assert swaffine.transpose_codes.launches == n + 1 + (not shared_query)
+    _same_tensors(got, swaffine.to_device(qc, tc, table, 4.73, 0.34, "cpu"))
+
+
+@pytest.mark.parametrize("b,t", [(0, 7), (5, 0), (0, 0)])
+def test_to_device_of_an_empty_array_makes_no_launch(cuda, b, t):
+    qc = np.zeros((b, 9), np.int32)
+    tc = np.zeros((b, t), np.int32)
+    table = np.zeros((21, 21), np.float32)
+    n = swaffine.transpose_codes.launches
+    got = swaffine.to_device(qc, tc, table, 11.0, 1.0, cuda)
+    # the (b, 9) per-lane queries launch once they hold a lane
+    assert swaffine.transpose_codes.launches == n + (b > 0)
+    assert (got[0].shape, got[1].shape) == ((9, b), (t, b))
+    _same_tensors(got, swaffine.to_device(qc, tc, table, 11.0, 1.0, "cpu"))
+
+
+def test_transpose_codes_rejects_bad_input(cuda):
+    x = torch.zeros((4, 6), dtype=torch.int32, device=cuda)
+    for bad in (x.long(), x[:, ::2], x[0]):
+        with pytest.raises(ValueError):
+            swaffine.transpose_codes(bad)
+
+
+@pytest.mark.parametrize("gi,ge", GAPS)
+@pytest.mark.parametrize("shared_query", [True, False])
+def test_k1_k2_on_the_card_layout_equal_plain_on_the_host_layout(
+        cuda, gi, ge, shared_query):
+    # a padded library whose Tmax (45) is no multiple of 32, each template
+    # padded by the wall code to its own length; the plain versions run on
+    # the host route's tensors, the kernels on the card route's
+    rng = np.random.default_rng(45)
+    b, tmax = 37, 45
+    qc, tc, table = _inputs(70, tmax, b, 45, shared_query)
+    for i, n in enumerate(rng.integers(1, tmax + 1, b)):
+        tc[i, n:] = PAD
+    tc[2] = rng.integers(0, 20, tmax)
+    dev = swaffine.to_device(qc, tc, table, gi, ge, cuda)
+    host = swaffine.to_device(qc, tc, table, gi, ge, "cpu")
+    got = swaffine.sw_affine_scores(*dev)
+    want = swaffine.sw_affine_scores(*host)
+    assert torch.equal(got.cpu(), want)
+    for g, w in zip(swaffine.sw_affine_tb(*dev), swaffine.sw_affine_tb(*host),
+                    strict=True):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_to_device_spans_on_the_card(cuda):
+    from alignment_algos_tpu_torch.utils import profiling
+    qc, tc, table = _inputs(8, 33, 7, 0, False)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        before = len(profiling.records())
+        swaffine.to_device(qc, tc, table, 11.0, 1.0, cuda)
+    recs = profiling.records()[before:]
+    root = [r for r in recs if r.name == "to_device"]
+    assert len(root) == 1
+    # the host layout, the copy, then the transposes' launches
+    assert [(r.name, r.parent) for r in recs[1:]] == [
+        ("to_device.layout", root[0].id), ("to_device.copy", root[0].id),
+        ("to_device.layout", root[0].id)]
+    assert recs[2].counts == {"h2d_bytes": 4 * (qc.size + tc.size
+                                                + table.size + 2)}
 
 
 # ------------------------------------------------- K3, K5, K6 (exact DP path)

@@ -5,6 +5,11 @@ value is built with float32 add, subtract and max in the same op order.
 JAX's Pallas kernels run in interpret mode, as the JAX package's own tests
 run them."""
 
+import ctypes
+import glob
+import os
+import re
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -12,7 +17,7 @@ import torch
 
 from alignment_algos_tpu.ops import swaffine as jsw
 from alignment_algos_tpu.ops import swstrip as jstrip
-from alignment_algos_tpu_torch.ops import swaffine
+from alignment_algos_tpu_torch.ops import _build, swaffine
 from alignment_algos_tpu_torch.utils import torchenv
 
 CPU = torch.device("cpu")
@@ -159,6 +164,66 @@ def test_cpu_route_counts_no_launch_and_checks_inputs():
         swaffine.sw_affine_scores(qd, td + 21, tab, gap)       # code >= A
     with pytest.raises(ValueError):
         swaffine.sw_affine_tb(qd, td, tab, gap[:1])
+
+
+@pytest.mark.parametrize("b,t", [(1, 1), (7, 33), (33, 32), (0, 5), (5, 0)])
+@pytest.mark.parametrize("shared_query", [True, False])
+def test_cpu_to_device_keeps_the_host_layout_and_dtypes(b, t, shared_query):
+    rng = np.random.default_rng(b * 100 + t)
+    qc = rng.integers(0, 21, 9 if shared_query else (b, 9))
+    tc = rng.integers(0, 21, (b, t)).astype(np.int32)
+    table = rng.standard_normal((21, 21))
+    n = swaffine.transpose_codes.launches
+    got = swaffine.to_device(qc, tc, table, 4.73, 0.34, CPU)
+    want = (qc.T.astype(np.int32), tc.T, table.astype(np.float32),
+            np.array([4.73, 0.34], np.float32))
+    assert swaffine.transpose_codes.launches == n
+    for g, w, src in zip(got, want, (qc, tc, table, None), strict=True):
+        assert g.device == CPU and g.is_contiguous()
+        assert g.dtype == torch.from_numpy(w).dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g.numpy(), w)
+        # the host route copies: no tensor aliases its caller's array
+        assert src is None or not np.shares_memory(g.numpy(), src)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (7, 33), (33, 32), (0, 4),
+                                   (4, 0)])
+def test_transpose_codes_plain_version(shape):
+    # there is none: the kernel is the only route, and on the CPU to_device
+    # transposes on the host (numpy) and never calls it
+    x = torch.arange(shape[0] * shape[1], dtype=torch.int32).view(shape)
+    n = swaffine.transpose_codes.launches
+    for bad in (x, x.long(), x.view(-1)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            swaffine.transpose_codes(bad)
+    assert swaffine.transpose_codes.launches == n
+
+
+def _c_entry_points() -> dict:
+    """Every ``extern "C" int name(...)`` of ``csrc/*.cu``: name -> its
+    parameters as ctypes (a pointer, the stream included, as c_void_p)."""
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
+    out = {}
+    for path in glob.glob(os.path.join(_build.CSRC, "*.cu")):
+        with open(path) as f:
+            text = f.read()
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                       text):
+            params = [p.strip() for p in params.split(",")]
+            out[name] = tuple(
+                ctypes.c_void_p if "*" in p else kinds[p.split()[-2]]
+                for p in params if p not in ("", "void"))
+    return out
+
+
+def test_every_c_entry_point_has_its_signature():
+    assert "transpose_i32_launch" in _build.SIGNATURES
+    assert set(_c_entry_points()) == set(_build.SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_c_entry_point_matches_its_signature(name):
+    assert _c_entry_points()[name] == _build.SIGNATURES[name]
 
 
 def test_device_from_env(monkeypatch):

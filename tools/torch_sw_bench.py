@@ -2,7 +2,7 @@
 """K1, K2, K8 and the decode at the FASTA main path's shapes on one NVIDIA
 GPU.
 
-    python3 tools/torch_sw_bench.py [--root DIR] [--reps 5]
+    python3 tools/torch_sw_bench.py [--root DIR] [--reps 5] [--layout B T]
 
 CUDA-event times (mean of ``--reps`` launches after a warm-up) of
 ``sw_affine_scores`` (K1) on one 512-residue query against 5120 templates
@@ -25,6 +25,17 @@ each of the 10 lanes' walk steps and windows (``k8_walks``, replayed on
 the host by ``chip_smoke.k8_walks``), and the windowed mode's launch
 alone on steered walks of known steps and windows (``k8_steered``), which
 split its time into a cost a step and a cost a window.
+
+``layout`` times the library's copy and layout on seeded (B, T) int32
+codes (``--layout``, default 71,200 x 4,132, the FASTA cells' padded
+library, 1.18 GB; ``--layout 0 0`` skips it): ``to_device_s``, host
+seconds of three ``to_device`` calls, each ending in a synchronize, and
+``peak_bytes`` over one, in any version of the port; where the checkout has
+``swaffine.transpose_codes``, ``kernel_ms``, the launch of
+``transpose_i32_kernel`` alone on a preallocated output, beside
+``library_ms``, PyTorch's ``x.t().contiguous()`` on the card (a
+yardstick), and ``bound_ms``, each element read once and written once at
+3.35 TB/s.
 
 ``--root DIR`` imports the port from another checkout, for example the
 parent commit unpacked with ``git archive``, so that two versions are timed
@@ -88,11 +99,46 @@ def k8_steered(kind: str, start: int, q: int, t: int, b: int, dev):
     return tb, m, dat
 
 
+def time_layout(sw, _build, cs, dev, b: int, t: int, reps: int) -> dict:
+    """``to_device`` of seeded (b, t) codes and, where the checkout has it,
+    the transpose kernel alone beside ``x.t().contiguous()``."""
+    import time
+    import numpy as np
+    import torch
+    codes = np.random.default_rng(b * t).integers(0, 21, (b, t),
+                                                  dtype=np.int32)
+    q, table = np.zeros(64, np.int32), np.zeros((21, 21), np.float32)
+    res = {"shape_b_t": [b, t], "to_device_s": []}
+    for _ in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        td = sw.to_device(q, codes, table, 12.0, 1.0, dev)[1]
+        torch.cuda.synchronize()
+        res["to_device_s"].append(time.perf_counter() - t0)
+        res["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        res["equal"] = bool(np.array_equal(td.cpu().numpy(), codes.T))
+        del td
+    src = torch.from_numpy(codes).to(dev)
+    res["library_ms"] = cs.cuda_ms(lambda: src.t().contiguous(), reps)
+    res["bound_ms"] = 8 * b * t / cs.HBM_BYTES_PER_S * 1e3
+    if hasattr(sw, "transpose_codes"):
+        out = torch.empty((t, b), dtype=torch.int32, device=dev)
+        lib = _build.load().lib
+        stream = torch.cuda.current_stream().cuda_stream
+        res["kernel_ms"] = cs.cuda_ms(lambda: lib.transpose_i32_launch(
+            src.data_ptr(), out.data_ptr(), b, t, stream), reps)
+        res["kernel_equal"] = bool(torch.equal(out, src.t()))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--layout", type=int, nargs=2, default=(71200, 4132),
+                    metavar=("B", "T"))
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -172,6 +218,10 @@ def main() -> int:
                                  args.reps)}
     res["k1_shape_q_t_b"] = [len(q), *td.shape]
     res["k2_shape_q_t_b"] = [len(q), *th.shape]
+    del qd, td, qh, th, outs
+    if min(args.layout) > 0:
+        res["layout"] = time_layout(sw, _build, cs, dev, *args.layout,
+                                    args.reps)
     print(json.dumps(res))
     return 0
 
