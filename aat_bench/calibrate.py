@@ -10,7 +10,9 @@ For each seed it writes the inputs, runs one screen of each query a run's
 check would sample, and compares them as a run does (the entry's
 ``check``): with the program's screens for a program seed, with the
 entry's ``Control`` in the program's place for a control seed.  One JSON
-line per seed.  The benchmark's runs do not run this.
+line per seed, with the cards it ran on: as a run does, it cuts
+``CUDA_VISIBLE_DEVICES`` to the cell's ``chips`` before torch is imported
+and refuses with fewer.  The benchmark's runs do not run this.
 """
 
 from __future__ import annotations
@@ -22,13 +24,12 @@ import shutil
 import sys
 import tempfile
 
-import torch
-
+from aat_bench import cards
 from aat_bench import cell as cells
 from aat_bench import screening
 
 
-def readings(c: cells.Cell, seed: int, device: torch.device,
+def readings(c: cells.Cell, seed: int, device,
              control: bool, config: dict | None = None,
              traffic: dict | None = None,
              bench_dir: str = cells.BENCH_DIR) -> dict:
@@ -64,15 +65,22 @@ def main(argv=None) -> int:
     p.add_argument("--seeds", default="")
     p.add_argument("--control-seeds", default="")
     args = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("no card visible", file=sys.stderr)
+    c = cells.find(cells.load_bench(), args.workload)
+    cards.narrow(c.chips)
+    import torch
+
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < c.chips:
+        print(f"{c.name} needs {c.chips} card(s); {have} visible",
+              file=sys.stderr)
         return 2
     os.environ["AAT_TORCH_DEVICE"] = "cuda"
-    c = cells.find(cells.load_bench(), args.workload)
+    on = [{"index": i, "kind": torch.cuda.get_device_name(i)}
+          for i in range(c.chips)]
     dev = torch.device("cuda", 0)
     for seeds, control in ((args.seeds, False), (args.control_seeds, True)):
         for s in filter(None, seeds.split(",")):
-            print(json.dumps({"workload": c.name,
+            print(json.dumps({"workload": c.name, "cards": on,
                               **readings(c, int(s), dev, control)}),
                   flush=True)
     return 0

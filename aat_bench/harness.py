@@ -6,6 +6,10 @@ to back, each query of the mix in turn from the first, until the window's
 seconds have passed; the screen that crosses the end completes, and the
 window is the time up to its end, so a rate is all the work of the window
 over all its time.
+
+A run has the cards its cell asks for (``cards``): the program's session
+and the reference check take the first; every card is synchronized, its
+peak memory read and its use in the window counted.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from aat_bench import cards as cards_
 from aat_bench import cell as cells
 from aat_bench import trace
 
@@ -61,13 +66,15 @@ def metric_modules(specs: list, bench_dir: str) -> dict:
 
 
 def run_cell(c: cells.Cell, seed: int, seconds: float, traced: bool,
-             device: torch.device, t0: float, *, root: str = cells.ROOT,
+             cards: list, t0: float, *, root: str = cells.ROOT,
              bench_dir: str = cells.BENCH_DIR, config: dict | None = None,
              traffic: dict | None = None, control: bool = False) -> dict:
-    """Run the cell once and return its result (the JSON object the run
-    prints, with ``checks`` last).  ``config`` / ``traffic`` replace the
-    cell's (the CPU rehearsal's small sizes); ``control`` puts the entry's
-    control in the program's place."""
+    """Run the cell once on ``cards`` (the run's devices, the first the
+    session's) and return its result (the JSON object the run prints, with
+    ``checks`` last).  ``config`` / ``traffic`` replace the cell's (the CPU
+    rehearsal's small sizes); ``control`` puts the entry's control in the
+    program's place."""
+    device = cards[0]
     config = config or c.config
     traffic = traffic or c.traffic
     specs = c.per_layer if traced else c.end_to_end
@@ -80,9 +87,8 @@ def run_cell(c: cells.Cell, seed: int, seconds: float, traced: bool,
         kind = entry.Control if control else entry.Session
         session = kind(config, traffic, inputs, root, device)
         session.screen(session.warmup_index())
-        _sync(device)
-        if device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(device)
+        cards_.sync(cards)
+        cards_.reset_peaks(cards)
         setup_s = time.perf_counter() - t0
 
         spans = prof = None
@@ -94,11 +100,12 @@ def run_cell(c: cells.Cell, seed: int, seconds: float, traced: bool,
                     if targets.get(name, (target,))[0] != target:
                         raise ValueError(f"span {name} has two targets")
                     targets[name] = (target, probes.get(name))
-            spans = trace.Spans(targets, device)
+            spans = trace.Spans(targets, cards)
             spans.install()
             prof = torch.profiler.profile(activities=_activities(device))
             prof.start()
         screens = []
+        before = cards_.allocations(cards)
         try:
             with torch.profiler.record_function(trace.PREFIX + trace.WINDOW):
                 w0 = time.perf_counter()
@@ -107,21 +114,26 @@ def run_cell(c: cells.Cell, seed: int, seconds: float, traced: bool,
                     with torch.profiler.record_function(trace.PREFIX
                                                         + "screen"):
                         rc, out = _screen(session, i)
-                        _sync(device)
+                        cards_.sync(cards)
                     s1 = time.perf_counter()
                     screens.append(Screen(i, rc, session.work(i), out))
                     i += 1
                     if s1 - w0 >= seconds:
                         break
             window_s = s1 - w0
+            after = cards_.allocations(cards)
         finally:
             if traced:
                 prof.stop()
                 spans.restore()
-        summary = trace.summarize(prof, spans.records) if traced else None
-
-        peak = (torch.cuda.max_memory_allocated(device)
-                if device.type == "cuda" else 0)
+        index = [d.index or 0 for d in cards]
+        summary = None
+        if traced:
+            summary = trace.summarize(prof, spans.records, index)
+            before = [0.0] * len(cards)
+            after = [summary["busy_by_card"][i] for i in index]
+        used = cards_.used(cards, before, after)
+        peaks = cards_.peaks(cards)
         found = forbidden_modules()
         if found:
             raise ForbiddenModules(found)
@@ -141,14 +153,18 @@ def run_cell(c: cells.Cell, seed: int, seconds: float, traced: bool,
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
         dev = {"platform": "gpu" if device.type == "cuda" else device.type,
-               "kind": (torch.cuda.get_device_name(device)
-                        if device.type == "cuda" else "cpu"),
-               "count": 1, "memory_peak_bytes": int(peak)}
+               "kind": _kind(device), "count": int(used),
+               "memory_peak_bytes": max(peaks),
+               "cards": [{"index": i, "kind": _kind(d),
+                          "memory_peak_bytes": p}
+                         for d, i, p in zip(cards, index, peaks)]}
         result = {"correct": all(v <= lim for _, v, lim in checks),
                   "attempted": len(screens),
                   "failed": sum(s.rc != 0 for s in screens),
                   "metrics": metrics, "device": dev}
         if traced:
+            for card in dev["cards"]:
+                card["busy_s"] = summary["busy_by_card"][card["index"]]
             dev["busy_s"] = summary["busy_s"]
             dev["window_s"] = summary["window_s"]
             result["breakdown"] = {"device_ops": summary["device_ops"],
@@ -176,9 +192,9 @@ def _screen(session, i: int):
         return -2, ""
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _kind(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else device.type)
 
 
 def _activities(device: torch.device) -> list:

@@ -30,8 +30,9 @@ def rehearse(workload: str, seed: int, seconds: float, traced: bool,
     c = cells.find(cells.load_bench(root), workload, root, bench_dir)
     gen = cells.load_module("generators", c.config["generator"], bench_dir)
     config, traffic = gen.small(c.config, c.traffic)
-    result = harness.run_cell(c, seed, seconds, traced, torch.device("cpu"),
-                              time.perf_counter(), root=root,
+    result = harness.run_cell(c, seed, seconds, traced,
+                              [torch.device("cpu")], time.perf_counter(),
+                              root=root,
                               bench_dir=bench_dir, config=config,
                               traffic=traffic, control=control)
     return {"rehearsal": "cpu", "correct": result["correct"],

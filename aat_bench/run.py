@@ -10,10 +10,13 @@ cell's end-to-end metrics with ``--trace 0``, its per-layer metrics with
 reference check compared, each beside its limit, come last there
 (``checks``) and as the last lines of standard error.
 
-Without a visible card, or with fewer than the cell asks for, the run
-exits with 2 before it measures anything.  If the measured process has
-loaded jax, jaxlib, flax or the JAX package, it exits with 3 and prints
-no result.
+Before torch is imported, ``CUDA_VISIBLE_DEVICES`` is cut to the cell's
+``chips`` cards (``cards.narrow``).  Without a visible card, or with fewer
+than the cell asks for, the run exits with 2 before it measures anything;
+if the window used fewer cards than the cell asks for (the program fell
+back to fewer), it exits with 2 after it and prints no result.  If the
+measured process has loaded jax, jaxlib, flax or the JAX package, it exits
+with 3 and prints no result.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
 
+from aat_bench import cards  # noqa: E402
 from aat_bench import cell as cells  # noqa: E402
 
 
@@ -58,9 +62,10 @@ def report(result: dict) -> None:
 def main(argv=None) -> int:
     args = parse(argv)
     _environment()
+    c = cells.find(cells.load_bench(), args.workload)
+    cards.narrow(c.chips)
     import torch
 
-    c = cells.find(cells.load_bench(), args.workload)
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if have < c.chips:
         print(f"{args.workload} needs {c.chips} card(s); "
@@ -70,11 +75,19 @@ def main(argv=None) -> int:
     from aat_bench import harness
     try:
         result = harness.run_cell(c, args.seed, args.seconds,
-                                  bool(args.trace), torch.device("cuda", 0),
-                                  T0)
+                                  bool(args.trace),
+                                  [torch.device("cuda", i)
+                                   for i in range(c.chips)], T0)
     except harness.ForbiddenModules as e:
         print(f"{e}: no result", file=sys.stderr)
         return 3
+    used = result["device"]["count"]
+    if used < c.chips:
+        how = "device work" if args.trace else "allocations"
+        print(f"{args.workload} asks for {c.chips} card(s); the window used "
+              f"{used} (counted by the {how} on each card): no result",
+              file=sys.stderr)
+        return 2
     report(result)
     return 0
 

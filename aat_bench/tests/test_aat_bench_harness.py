@@ -70,7 +70,7 @@ def test_fasta_control_fails():
     cfg = {**cfg, "lengths": {**cfg["lengths"], "median": 300, "max": 900},
            "n_templates": 16, "query_lengths": [1200]}
     tr = {**tr, "queries": [1200], "check": {**tr["check"], "sample": 1}}
-    r = harness.run_cell(c, 23, 0.0, False, torch.device("cpu"),
+    r = harness.run_cell(c, 23, 0.0, False, [torch.device("cpu")],
                          time.perf_counter(), config=cfg, traffic=tr,
                          control=True)
     assert not r["correct"]
@@ -166,9 +166,10 @@ def test_planted_fault_is_not_correct(monkeypatch, workload, module, attr,
     assert _fails(r["checks"], names), r["checks"]
 
 
-def test_a_cell_added_as_files_is_found(tmp_path):
-    """A new configuration, mix and metric, added as files in a copy; no
-    file that was there is edited."""
+def _add_cell(tmp_path, chips):
+    """A copy of the benchmark with the cell ``tiny_lib.two`` of ``chips``
+    cards added as files, its metric ``screens_done`` with it: (root,
+    bench_dir)."""
     root = tmp_path / "checkout"
     bench_dir = root / "aat_bench"
     shutil.copytree(cells.BENCH_DIR, bench_dir,
@@ -185,16 +186,36 @@ def test_a_cell_added_as_files_is_found(tmp_path):
     bench["configs"].append({**bench["configs"][0], "name": "tiny_lib",
                              "file": "aat_bench/configs/tiny_lib.json"})
     bench["workloads"].append({"name": "tiny_lib.two", "config": "tiny_lib",
-                               "traffic": "two_queries", "chips": 1,
+                               "traffic": "two_queries", "chips": chips,
                                "why": "a test"})
     bench["end_to_end"].append({"name": "screens_done", "unit": "screens",
                                 "better": "higher", "bound": 0.1,
                                 "source": "host_clock"})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return root, bench_dir
+
+
+def test_a_cell_added_as_files_is_found(tmp_path):
+    """A new configuration, mix and metric, added as files in a copy; no
+    file that was there is edited."""
+    root, bench_dir = _add_cell(tmp_path, 1)
     r = rehearse.rehearse("tiny_lib.two", 3, 0.2, traced=False,
                           root=str(root), bench_dir=str(bench_dir))
     assert r["correct"]
     assert "screens_done" in r["metrics_read"]
+
+
+def test_a_four_card_cell_added_as_files_is_found(tmp_path):
+    """A cell on four cards, added as files alone, resolves with its
+    ``chips`` and rehearses on the CPU like any other."""
+    root, bench_dir = _add_cell(tmp_path, 4)
+    c = cells.find(cells.load_bench(str(root)), "tiny_lib.two", str(root),
+                   str(bench_dir))
+    assert c.chips == 4
+    r = rehearse.rehearse("tiny_lib.two", 3, 0.2, traced=True,
+                          root=str(root), bench_dir=str(bench_dir))
+    assert r["correct"]
+    assert r["attempted"] >= 1 and r["failed"] == 0
 
 
 def test_run_refuses_without_a_card(tmp_path):

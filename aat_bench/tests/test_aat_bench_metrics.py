@@ -75,13 +75,13 @@ def test_k3_bound_worked_value():
         100 * ops / yardstick.F32_OPS_PER_S / 1e-3)
 
 
-def _event(name, start_us, end_us, cuda):
+def _event(name, start_us, end_us, cuda, card=0):
     from torch.autograd import DeviceType
     return types.SimpleNamespace(
         name=name, time_range=types.SimpleNamespace(start=start_us,
                                                     end=end_us),
         device_type=DeviceType.CUDA if cuda else DeviceType.CPU,
-        is_user_annotation=False)
+        device_index=card, is_user_annotation=False)
 
 
 def test_summary_busy_idle_and_span_device_time():
@@ -103,3 +103,41 @@ def test_summary_busy_idle_and_span_device_time():
     assert idle["between screens"] == pytest.approx(5.5)
     run = _run([], 10.0, device=s)
     assert _reader("device_idle_pct.fasta").read(run) == pytest.approx(75.0)
+
+
+FOUR_CARDS = [_event("aat_bench.window", 0, 10e6, False),
+              _event("aat_bench.k1", 1e6, 4e6, False),
+              _event("kernel_a", 2e6, 3e6, True, card=0),
+              _event("kernel_a", 2.5e6, 3.5e6, True, card=1),
+              _event("memcpy", 8.5e6, 9.5e6, True, card=2)]
+
+
+def test_summary_per_card():
+    """Four cards, the last idle: busy is each card's union and their
+    mean, a span's device time and the idle gaps are sums over the
+    cards."""
+    prof = types.SimpleNamespace(events=lambda: FOUR_CARDS)
+    span = trace.Span("k1", 0, 1, {})
+    s = trace.summarize(prof, [span], [0, 1, 2, 3])
+    assert s["busy_by_card"] == {0: pytest.approx(1.0), 1: pytest.approx(1.0),
+                                 2: pytest.approx(1.0), 3: 0.0}
+    assert s["busy_s"] == pytest.approx(0.75)
+    # card 0's 2-3 s and card 1's 2.5-3.5 s, both inside 1-4 s
+    assert span.device_s == pytest.approx(2.0)
+    assert dict(s["device_ops"]) == {"kernel_a": pytest.approx(2.0),
+                                     "memcpy": pytest.approx(1.0)}
+    idle = dict(s["idle_gaps"])
+    # cards 0 and 1 wait 2 and 2.5 s inside k1; the rest of 40
+    # card-seconds, less 3 busy, between screens
+    assert idle["k1"] == pytest.approx(4.5)
+    assert idle["between screens"] == pytest.approx(32.5)
+    run = _run([], 10.0, device=s)
+    assert _reader("device_idle_pct.fasta").read(run) == pytest.approx(92.5)
+
+
+def test_summary_of_one_card_reads_only_its_own():
+    """Device work on a card the run does not have is refused, not
+    counted as the run's."""
+    prof = types.SimpleNamespace(events=lambda: FOUR_CARDS)
+    with pytest.raises(RuntimeError, match=r"card\(s\) \[1, 2\]"):
+        trace.summarize(prof, [], [0])

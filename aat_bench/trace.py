@@ -2,14 +2,17 @@
 
 A span is the benchmark's own wrapper around a function of the program,
 put at the module attribute its caller looks up, for the traced run only
-and restored after it.  It synchronizes the device before it starts and
-before it ends, so the device work launched inside it also ends inside it,
-and it marks itself in the profiler (``aat_bench.<span>``), so that its
-device time is the profiler's device activity within its interval.
+and restored after it.  It synchronizes every card of the run before it
+starts and before it ends, so the device work launched inside it also ends
+inside it on every card, and it marks itself in the profiler
+(``aat_bench.<span>``), so that its device time is the profiler's device
+activity within its interval, summed over the cards (card-seconds).
 
-The device summary reads ``torch.profiler``'s events kept in memory: the
-busy time is the union of the kernels', copies' and memsets' intervals in
-the window; the idle gaps are labelled by the span the host was in.
+The device summary reads ``torch.profiler``'s events kept in memory,
+grouped by the card each ran on (``device_index``): a card's busy time is
+the union of its kernels', copies' and memsets' intervals in the window,
+and the run's busy time is the mean over its cards; each card's idle gaps
+are labelled by the span the host was in, and summed over the cards.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+
+from aat_bench import cards as cards_
 
 PREFIX = "aat_bench."
 
@@ -37,19 +42,14 @@ class Span:
         return self.end - self.start
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 class Spans:
     """Wrappers for ``targets``: span name -> ("module:attr", probe or
     None); a probe maps the call's (args, kwargs) to a dict kept with the
-    span (sizes only: it runs no device work)."""
+    span (sizes only: it runs no device work).  ``cards``: the run's."""
 
-    def __init__(self, targets: dict, device: torch.device):
+    def __init__(self, targets: dict, cards: list):
         self.targets = targets
-        self.device = device
+        self.cards = cards
         self.records: list[Span] = []
         self._saved = []
 
@@ -59,11 +59,11 @@ class Spans:
         @functools.wraps(fn)
         def span(*args, **kwargs):
             info = probe(args, kwargs) if probe else {}
-            _sync(self.device)
+            cards_.sync(self.cards)
             t0 = time.perf_counter()
             with torch.profiler.record_function(PREFIX + name):
                 out = fn(*args, **kwargs)
-                _sync(self.device)
+                cards_.sync(self.cards)
             self.records.append(Span(name, t0, time.perf_counter(), info))
             return out
         return span
@@ -100,10 +100,13 @@ def _overlap(merged, s, e) -> float:
 WINDOW = "window"
 
 
-def summarize(prof, spans: list[Span]) -> dict:
+def summarize(prof, spans: list[Span], cards: list = (0,)) -> dict:
     """Device busy and window seconds, the top device operations, the idle
     gaps by span, and each span's device time (set on ``spans`` in
-    order)."""
+    order).  ``cards``: the run's cards as the profiler indexes them.
+    ``busy_s`` is the mean over the cards, ``busy_by_card`` each card's; a
+    span's device time, the device operations and the idle gaps are sums
+    over the cards."""
     from torch.autograd import DeviceType
 
     marks, device = [], []
@@ -114,16 +117,21 @@ def summarize(prof, spans: list[Span]) -> dict:
                 marks.append((e.name[len(PREFIX):], start, end))
         elif e.device_type == DeviceType.CUDA and not getattr(
                 e, "is_user_annotation", False):
-            device.append((e.name, start, end))
+            device.append((e.device_index, e.name, start, end))
     win = [(s, e) for n, s, e in marks if n == WINDOW]
     if not win:
         raise RuntimeError("the profiler holds no window mark")
     w0, w1 = win[0]
-    device = [(n, max(s, w0), min(e, w1)) for n, s, e in device
+    device = [(c, n, max(s, w0), min(e, w1)) for c, n, s, e in device
               if e > w0 and s < w1]
-    busy = _union([[s, e] for _, s, e in device])
+    strange = sorted({c for c, _, _, _ in device} - set(cards))
+    if strange:
+        raise RuntimeError(f"device work on card(s) {strange}, outside the "
+                           f"run's {list(cards)}")
+    busy = {k: _union([[s, e] for c, _, s, e in device if c == k])
+            for k in cards}
     by_name = {}
-    for n, s, e in device:
+    for _, n, s, e in device:
         by_name[n] = by_name.get(n, 0.0) + (e - s)
 
     marked = [m for m in marks if m[0] != WINDOW]
@@ -133,23 +141,28 @@ def summarize(prof, spans: list[Span]) -> dict:
         counts[name] = k + 1
         mine = [sp for sp in spans if sp.name == name]
         if k < len(mine):
-            mine[k].device_s = _overlap(busy, s, e)
+            mine[k].device_s = sum(_overlap(busy[c], s, e) for c in cards)
 
-    # idle gaps, each labelled by the innermost span the host was in
-    gaps, t = [], w0
-    for s, e in busy + [[w1, w1]]:
-        if s > t:
-            gaps.append((t, s))
-        t = max(t, e)
+    # each card's idle gaps, each labelled by the innermost span the host
+    # was in, summed over the cards
     idle = {}
-    for s, e in gaps:
-        mid = (s + e) / 2
-        inside = [(ms, name) for name, ms, me in marked if ms <= mid <= me]
-        label = max(inside)[1] if inside else "between screens"
-        idle[label] = idle.get(label, 0.0) + (e - s)
+    for c in cards:
+        gaps, t = [], w0
+        for s, e in busy[c] + [[w1, w1]]:
+            if s > t:
+                gaps.append((t, s))
+            t = max(t, e)
+        for s, e in gaps:
+            mid = (s + e) / 2
+            inside = [(ms, name) for name, ms, me in marked
+                      if ms <= mid <= me]
+            label = max(inside)[1] if inside else "between screens"
+            idle[label] = idle.get(label, 0.0) + (e - s)
+    busy_by_card = {c: sum(e - s for s, e in busy[c]) for c in cards}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"window_s": w1 - w0,
-            "busy_s": sum(e - s for s, e in busy),
+            "busy_s": sum(busy_by_card.values()) / len(cards),
+            "busy_by_card": busy_by_card,
             "device_ops": [[n, v] for n, v in top],
             "idle_gaps": [[n, v] for n, v in
                           sorted(idle.items(), key=lambda kv: -kv[1])[:10]],
