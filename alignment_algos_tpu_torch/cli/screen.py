@@ -30,7 +30,9 @@ library (FASTA) or each length bucket (profiles) is split over all of them
 Under a recording ``torch.profiler`` every call is one ``aat_screen`` span
 (``utils.profiling``), its stages spans beneath it: ``fasta.read_inputs``
 (``fasta.read``, ``fasta.encode``), ``screen.library`` and ``cluster`` in
-FASTA mode; ``profile.read`` and ``hmap.screen`` with ``--profiles 1``.
+FASTA mode, where the root counts the ``cards`` the library is split over
+(1 without a mesh); ``profile.read`` and ``hmap.screen`` with
+``--profiles 1``.
 """
 
 from __future__ import annotations
@@ -215,6 +217,7 @@ def _run(argv, device: torch.device) -> int:
     q_codes, t_codes, table = inp.q_codes, inp.t_codes, inp.table
 
     mesh = _mesh(device)
+    profiling.count("cards", mesh.size if mesh is not None else 1)
     if ckpt:
         from ..parallel.checkpoint import screen_library_checkpointed
         scores, idx, done = screen_library_checkpointed(

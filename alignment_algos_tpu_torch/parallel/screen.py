@@ -120,25 +120,45 @@ def _top(scores: torch.Tensor, k: int):
     return scores[order], order
 
 
+def _launch_shards(q_codes, t_codes, table, gi: float, ge: float, k: int,
+                   devices, bounds) -> list:
+    """Each non-empty shard ``bounds[s]`` copied to ``devices[s]``, scored
+    there by K1 and ranked by its own top min(k, shard size), nothing read
+    back: [(scores, order, lo)] on the devices.  Span: ``mesh.shard`` a
+    shard (counters ``card``, the shard's position s, which is the card's
+    index on a mesh of distinct cards, and ``templates``), around its
+    ``to_device`` and ``k1``."""
+    pending = []
+    for card, (dev, (lo, hi)) in enumerate(zip(devices, bounds)):
+        if lo == hi:
+            continue
+        with profiling.span("mesh.shard", card=card, templates=hi - lo):
+            q, t, tab, gap = to_device(q_codes, t_codes[lo:hi], table, gi,
+                                       ge, dev)
+            s, i = _top(swaffine.sw_affine_scores(q, t, tab, gap),
+                        min(k, hi - lo))
+        pending.append((s, i, lo))
+    return pending
+
+
+def _pull(pending: list) -> tuple:
+    """Every shard's candidates, concatenated in shard order as numpy
+    (scores float32, global indices int64): waits for each card in turn.
+    Span: ``screen.topk``."""
+    with profiling.span("screen.topk"):
+        return (np.concatenate([s.cpu().numpy() for s, _, _ in pending]),
+                np.concatenate([i.cpu().numpy() + lo
+                                for _, i, lo in pending]))
+
+
 def shard_candidates(q_codes, t_codes, table, gi: float, ge: float, k: int,
                      devices, bounds) -> tuple:
     """Each shard ``bounds[s]`` of the library scored on ``devices[s]``
     with its own top min(k, shard size); returns every shard's candidates,
     concatenated in shard order as numpy (scores float32, global indices
     int64).  Every shard is launched before the first is read back."""
-    pending = []
-    for dev, (lo, hi) in zip(devices, bounds):
-        if lo == hi:
-            continue
-        q, t, tab, gap = to_device(q_codes, t_codes[lo:hi], table, gi, ge,
-                                   dev)
-        s, i = _top(swaffine.sw_affine_scores(q, t, tab, gap),
-                    min(k, hi - lo))
-        pending.append((s, i, lo))
-    with profiling.span("screen.topk"):
-        return (np.concatenate([s.cpu().numpy() for s, _, _ in pending]),
-                np.concatenate([i.cpu().numpy() + lo
-                                for _, i, lo in pending]))
+    return _pull(_launch_shards(q_codes, t_codes, table, gi, ge, k, devices,
+                                bounds))
 
 
 def screen_library(q_codes: np.ndarray, t_codes: np.ndarray,
@@ -154,15 +174,22 @@ def screen_library(q_codes: np.ndarray, t_codes: np.ndarray,
     launch per shard on its entry's device, the candidates merged by
     :func:`merge_topk`.  Spans: ``screen.library``, and beneath it
     ``to_device``, ``k1`` and ``screen.topk`` (the sort and the pull of
-    the scores; with a mesh, the pull)."""
+    the scores).  With a mesh, ``mesh.shard`` holds each shard's
+    ``to_device`` and ``k1`` (the feed), and ``mesh.drain`` the pull
+    (``screen.topk``, which waits for the slowest card) and the host merge
+    (``mesh.merge``)."""
     with profiling.span("screen.library"):
         t_codes = np.asarray(t_codes, dtype=np.int32)
         k = min(k, t_codes.shape[0])
         if mesh is not None:
             devices = list(mesh.devices.flat)
-            scores, idx = merge_topk(*shard_candidates(
+            pending = _launch_shards(
                 q_codes, t_codes, table, gi, ge, k, devices,
-                shard_bounds(t_codes.shape[0], len(devices))), k)
+                shard_bounds(t_codes.shape[0], len(devices)))
+            with profiling.span("mesh.drain"):
+                candidates = _pull(pending)
+                with profiling.span("mesh.merge"):
+                    scores, idx = merge_topk(*candidates, k)
             return scores.astype(np.float32), idx.astype(np.int32)
         device = device_from_env() if device is None else torch.device(device)
         q, t, tab, gap = to_device(q_codes, t_codes, table, gi, ge, device)

@@ -114,6 +114,68 @@ def test_merge_topk_orders_ties_by_index():
         [(3, 3)] * 5
 
 
+def _gotoh_scores(q, lib, pad: int, table, gi: float, ge: float):
+    """Every template's best local score by the plain affine Gotoh
+    recurrence in float64 torch (a gap of k costs gi + (k - 1) ge), lanes
+    the templates, over each template's real residues only."""
+    t = torch.from_numpy(lib).long().clamp(max=pad - 1)
+    lens = torch.from_numpy((lib != pad).sum(axis=1))
+    n, tmax = t.shape
+    sub = torch.from_numpy(table[:pad, :pad]).double()
+    real = torch.arange(tmax)[None, :] < lens[:, None]
+    ninf = torch.tensor(float("-inf"), dtype=torch.float64)
+    h_up = torch.zeros(n, tmax + 1, dtype=torch.float64)
+    f = ninf.expand(n, tmax)
+    best = torch.zeros(n, dtype=torch.float64)
+    for qi in q:
+        s = sub[int(qi)][t]
+        f = torch.maximum(f - ge, h_up[:, 1:] - gi)
+        h = torch.zeros(n, tmax + 1, dtype=torch.float64)
+        e = ninf.expand(n)
+        for j in range(tmax):
+            e = torch.maximum(e - ge, h[:, j] - gi)
+            h[:, j + 1] = torch.maximum(torch.maximum(
+                h_up[:, j] + s[:, j], e), f[:, j]).clamp(min=0.0)
+        best = torch.maximum(best, torch.where(real, h[:, 1:], 0.0).amax(1))
+        h_up = h
+    return best.numpy()
+
+
+@pytest.mark.parametrize("k", [5, 23])
+def test_four_shards_of_uneven_size_and_length_equal_one_device(k):
+    """23 templates over four CPU entries (shards of 6, 6, 6 and 5), each
+    shard's longest template a different length: the hits equal the
+    one-device screen's bit for bit, and a plain Gotoh's."""
+    rng = np.random.default_rng(23)
+    n, pad = 23, 20
+    q = rng.integers(0, 20, 30).astype(np.int32)
+    lens = rng.integers(10, 20, n)
+    lens[[0, 6, 12, 18]] = [47, 40, 33, 26]
+    lib = np.full((n, 47), pad, np.int32)
+    for r, m in enumerate(lens):
+        lib[r, :m] = rng.integers(0, 20, m)
+    lib[7, 3:23] = q[5:25]                      # a homolog in shard 1
+    lib[20] = lib[7]                            # its tie in shard 3
+    table = np.full((21, 21), -1.0e4, np.float32)
+    table[:20, :20] = rng.integers(-4, 3, (20, 20))
+    np.fill_diagonal(table[:20, :20], 6)
+    bounds = screen.shard_bounds(n, 4)
+    assert [hi - lo for lo, hi in bounds] == [6, 6, 6, 5]
+    assert len({int(lens[lo:hi].max()) for lo, hi in bounds}) == 4
+
+    s, i = screen.screen_library(q, lib, table, 11.0, 1.0, k=k,
+                                 mesh=screen.default_mesh(4, device=CPU))
+    os_, oi = screen.screen_library(q, lib, table, 11.0, 1.0, k=k,
+                                    device=CPU)
+    _same(s, os_)
+    _same(i, oi)
+    want = _gotoh_scores(q, lib, pad, table, 11.0, 1.0)
+    top = np.lexsort((np.arange(n), -want))[:k]
+    np.testing.assert_array_equal(i, top)
+    _same(s, want[top].astype(np.float32))
+    assert list(i[:2]) == [7, 20] and s[0] == s[1]
+
+
 # ----------------------------------------------------------------- grid
 
 @pytest.mark.parametrize("k", [5, 42])

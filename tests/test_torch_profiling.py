@@ -213,9 +213,78 @@ def test_fasta_screen_leaves_its_span_tree(fastas, monkeypatch):
     assert _one(recs, "fasta.encode").counts == {
         "residues": sum(map(len, lib))}
     assert _one(recs, "k1").counts == {"q": qlen, "cells": qlen * tmax * n}
+    # one device, no mesh
+    assert _one(recs, "aat_screen").counts == {"cards": 1}
     # no other span counts anything; no card, so no bytes copied to one
     assert all(not r.counts for r in recs
-               if r.name not in ("fasta.encode", "k1")), recs
+               if r.name not in ("aat_screen", "fasta.encode", "k1")), recs
+
+
+MESH_TREE = {
+    ("screen.library", None), ("mesh.shard", "screen.library"),
+    ("to_device", "mesh.shard"), ("to_device.layout", "to_device"),
+    ("to_device.copy", "to_device"), ("k1", "mesh.shard"),
+    ("k1.check", "k1"), ("mesh.drain", "screen.library"),
+    ("screen.topk", "mesh.drain"), ("mesh.merge", "mesh.drain")}
+
+
+def _mesh_inputs():
+    rng = np.random.default_rng(8)
+    q = rng.integers(0, 20, 30).astype(np.int32)
+    lib = np.full((23, 48), 20, np.int32)
+    for r, m in enumerate(rng.integers(12, 48, 23)):
+        lib[r, :m] = rng.integers(0, 20, m)
+    table = np.full((21, 21), -1.0e4, np.float32)
+    table[:20, :20] = rng.integers(-4, 11, (20, 20))
+    return q, lib, table
+
+
+def test_mesh_screen_spans_each_shard_and_the_drain(monkeypatch):
+    """On a mesh of four CPU entries: one ``mesh.shard`` a shard (the
+    feed: its copy and K1), counting its entry and its templates, then one
+    ``mesh.drain`` holding the pull and the host merge; no span
+    synchronizes."""
+    from alignment_algos_tpu_torch.parallel import screen
+    monkeypatch.setattr(torch.cuda, "synchronize", _refuse)
+    q, lib, table = _mesh_inputs()
+    before = len(profiling.records())
+    with _profiler():
+        got = screen.screen_library(q, lib, table, 11.0, 1.0, k=5,
+                                    mesh=screen.default_mesh(4, device="cpu"))
+    recs = _new(before)
+    assert _edges(recs) == MESH_TREE
+    shards = [r for r in recs if r.name == "mesh.shard"]
+    assert [r.counts["card"] for r in shards] == [0, 1, 2, 3]
+    assert sum(r.counts["templates"] for r in shards) == len(lib)
+    assert [r.counts["templates"] for r in shards] == [
+        hi - lo for lo, hi in screen.shard_bounds(len(lib), 4)]
+    drain, merge = _one(recs, "mesh.drain"), _one(recs, "mesh.merge")
+    assert merge.parent == drain.id
+    assert drain.start >= max(r.end for r in shards)
+    assert not drain.counts and not merge.counts
+    # the one-device screen keeps its own spans, and no mesh span
+    before = len(profiling.records())
+    with _profiler():
+        one = screen.screen_library(q, lib, table, 11.0, 1.0, k=5,
+                                    device="cpu")
+    assert _edges(_new(before)) == {
+        ("screen.library", None), ("to_device", "screen.library"),
+        ("to_device.layout", "to_device"), ("to_device.copy", "to_device"),
+        ("k1", "screen.library"), ("k1.check", "k1"),
+        ("screen.topk", "screen.library")}
+    for a, b in zip(got, one):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_mesh_screen_records_nothing_off_the_profiler(monkeypatch):
+    from alignment_algos_tpu_torch.parallel import screen
+    q, lib, table = _mesh_inputs()
+    before = len(profiling.records())
+    monkeypatch.setattr(torch.profiler, "record_function", _refuse)
+    monkeypatch.setattr(torch.cuda, "synchronize", _refuse)
+    screen.screen_library(q, lib, table, 11.0, 1.0, k=5,
+                          mesh=screen.default_mesh(4, device="cpu"))
+    assert len(profiling.records()) == before
 
 
 def test_profile_screen_counts_its_rows(profile_lib, monkeypatch):
